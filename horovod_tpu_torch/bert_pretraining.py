@@ -1,0 +1,157 @@
+"""BERT-base data-parallel pretraining step on the GPU.
+
+Port of ``examples/bert_pretraining_benchmark.py --flash``: the
+``TransformerLM`` with flash attention (hand-written CUDA kernels),
+cross-entropy of the next token over float32 logits, gradients allreduced
+by :func:`horovod_tpu_torch.DistributedOptimizer` and the fused AdamW
+update (``adamw(1e-4, weight_decay=0.01)``, small tensors through
+per-dtype flat buffers). Defaults are BERT-base (L=12, H=768, A=12, MLP
+3072, seq 512, vocab 30522) at 8 sequences per GPU, bf16 compute and
+float32 parameters. The steps run in a plain Python loop; dropout is off.
+
+Run (one GPU; one process per GPU with RANK/WORLD_SIZE/LOCAL_RANK/
+MASTER_ADDR/MASTER_PORT set for more)::
+
+    python -m horovod_tpu_torch.bert_pretraining --flash --steps 30
+
+It prints tokens/s per GPU, step time, MFU against the peak of
+:mod:`horovod_tpu_torch.utils.hardware` and the loss.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.optimizer import Optimizer
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--hidden", type=int, default=768)
+    ap.add_argument("--heads", type=int, default=12)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--vocab", type=int, default=30522)
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="sequences per GPU")
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--flash", action="store_true",
+                    help="attention through the flash-attention kernels "
+                         "(forward + backward) instead of plain attention")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the token batch")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap.parse_args(argv)
+
+
+def make_config(args: argparse.Namespace) -> TransformerConfig:
+    return TransformerConfig(
+        vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
+        hidden_dim=args.hidden, mlp_dim=4 * args.hidden,
+        max_len=args.seq_len, dtype=torch.bfloat16,
+        attention_fn=flash_attention if args.flash else None)
+
+
+def make_optimizer(model: torch.nn.Module) -> Optimizer:
+    """Broadcast rank 0's weights, then bind the distributed fused AdamW
+    to the model's parameters."""
+    params = list(model.parameters())
+    hvd.broadcast_parameters(params, root_rank=0)
+    return Optimizer(hvd.DistributedOptimizer(
+        hvd.adamw(1e-4, weight_decay=0.01), fused_update=True), params)
+
+
+def make_tokens(args: argparse.Namespace, device) -> torch.Tensor:
+    """One fixed random batch (batch_size, seq_len) of token ids."""
+    rng = np.random.RandomState(args.seed)
+    tokens = rng.randint(0, args.vocab, size=(args.batch_size, args.seq_len))
+    return torch.from_numpy(tokens.astype(np.int64)).to(device)
+
+
+def loss_fn(model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the next token (``roll(tokens, -1)``)."""
+    logits = model(tokens)
+    target = torch.roll(tokens, -1, dims=1)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           target.reshape(-1))
+
+
+def train_step(model: torch.nn.Module, opt: Optimizer,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """Forward, backward, allreduce and update; returns the loss averaged
+    over ranks (a device tensor: reading it waits for the step)."""
+    opt.zero_grad()
+    loss = loss_fn(model, tokens)
+    loss.backward()
+    opt.step()
+    return hvd.allreduce(loss.detach())
+
+
+def flops_per_step(cfg: TransformerConfig, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 3x the forward's matmuls (the
+    backward does two products per forward product); recomputation inside
+    the flash backward is not counted."""
+    h, layers = cfg.hidden_dim, cfg.num_layers
+    tokens = batch * seq
+    dense = layers * (4 * h * h + 2 * h * cfg.mlp_dim) + h * cfg.vocab_size
+    attention = layers * 4 * batch * seq * seq * h  # QK^T and PV
+    return 3.0 * (2.0 * tokens * dense + attention)
+
+
+def build(args: argparse.Namespace):
+    """World, model, optimizer and batch for ``args`` on ``args.device``."""
+    hvd.init(device=args.device)
+    device = hvd.device()
+    model = TransformerLM(make_config(args),
+                          generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    return model, make_optimizer(model), make_tokens(args, device)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    model, opt, tokens = build(args)
+    device = hvd.device()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"# params: {n_params / 1e6:.1f}M, {hvd.size()} rank(s) on "
+          f"{device.type}")
+    for _ in range(args.warmup):
+        train_step(model, opt, tokens)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        loss = train_step(model, opt, tokens)
+    loss = float(loss)
+    _sync(device)
+    step_time = (time.perf_counter() - t0) / max(1, args.steps)
+    tok_per_s = args.batch_size * args.seq_len / step_time
+    mfu = float("nan")
+    if device.type == "cuda":
+        from horovod_tpu_torch.utils.hardware import device_peak
+
+        peak = device_peak(device)
+        if peak is not None:
+            mfu = flops_per_step(model.cfg, args.batch_size,
+                                 args.seq_len) / step_time / peak.bf16_flops
+    print(f"tokens/sec/gpu: {tok_per_s:.0f}  step_ms: {step_time * 1e3:.2f}"
+          f"  mfu: {mfu:.3f}  loss={loss:.5f}")
+    hvd.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -52,8 +52,11 @@ setup(
     version="0.1.0",
     description="TPU-native distributed training framework "
                 "(Horovod-capability parity on JAX/XLA)",
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
-    package_data={"horovod_tpu.core.native": ["*.so", "*.cc"]},
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
+    package_data={"horovod_tpu.core.native": ["*.so", "*.cc"],
+                  "horovod_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "scipy"],
     extras_require={

@@ -1,0 +1,150 @@
+"""The whole slice: two BERT training steps of the PyTorch port against the
+JAX package, and the port's independence from JAX.
+
+Tiny config (2 layers, hidden 64, 2 heads, MLP 256, vocab 97, seq 32),
+float32 compute, flash attention on both sides (Pallas in interpret mode
+for JAX, the plain versions of the CUDA kernels for the port), params
+converted from the flax init. The JAX step is the example's
+``value_and_grad`` + ``fuse(optax.adamw(1e-4, weight_decay=0.01))``, which
+is what ``DistributedOptimizer(..., fused_update=True)`` runs in a world
+of one; the port's is ``bert_pretraining.train_step``. Tolerances: loss
+rtol 1e-5, step-1 gradients atol 1e-4, parameters after two steps atol
+2e-6 (2% of one lr=1e-4 Adam step: where a gradient is ~1e-8, eps-sized,
+the frameworks' float32 rounding moves its update by that much). The key
+biases are the exception: their gradient is zero in exact arithmetic, so
+Adam turns each side's rounding noise into +-lr steps, and only that
+bound is checked.
+"""
+
+import argparse
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu.jax.fused import fuse
+from horovod_tpu.models import transformer as jtr
+from horovod_tpu.ops.flash_attention import flash_attention as jflash
+from horovod_tpu_torch import bert_pretraining as bp
+from horovod_tpu_torch.convert import params_from_jax
+from horovod_tpu_torch.models import transformer as ttr
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(vocab_size=97, num_layers=2, num_heads=2, hidden_dim=64,
+            mlp_dim=256, max_len=32)
+
+
+@pytest.fixture
+def world_of_one():
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    yield
+    hvd.shutdown()
+
+
+def test_two_train_steps_match_jax(world_of_one):
+    tokens = np.random.RandomState(0).randint(0, 97, (2, 32))
+    jmodel = jtr.TransformerLM(jtr.TransformerConfig(
+        **TINY, dtype=jnp.float32, attention_fn=jflash))
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(tokens))["params"]
+    jopt = fuse(optax.adamw(1e-4, weight_decay=0.01))
+    jstate = jopt.init(params)
+
+    @jax.jit
+    def jstep(params, state, toks):
+        def loss_fn(p):
+            logits = jmodel.apply({"params": p}, toks)
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, jnp.roll(toks, -1, axis=1)).mean()
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        upd, state = jopt.update(grads, state, params)
+        return optax.apply_updates(params, upd), state, loss, grads
+
+    tmodel = ttr.TransformerLM(ttr.TransformerConfig(
+        **TINY, dtype=torch.float32, attention_fn=bp.flash_attention))
+    tmodel.load_state_dict(params_from_jax(jax.device_get(params)))
+    opt = bp.make_optimizer(tmodel)
+    ttok = torch.from_numpy(tokens)
+
+    for step in range(2):
+        params, jstate, jloss, jgrads = jstep(params, jstate,
+                                              jnp.asarray(tokens))
+        tloss = bp.train_step(tmodel, opt, ttok)
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        if step == 0:
+            want = params_from_jax(jax.device_get(jgrads))
+            for name, p in tmodel.named_parameters():
+                np.testing.assert_allclose(p.grad.numpy(),
+                                           want[name].numpy(), atol=1e-4,
+                                           rtol=0, err_msg=name)
+    want = params_from_jax(jax.device_get(params))
+    for name, p in tmodel.named_parameters():
+        if name.endswith("attn.key.bias"):
+            # Softmax ignores a shift shared by all keys, so this gradient
+            # is 0 up to rounding noise, which Adam scales to +-lr per
+            # step on either side: only the bound is common.
+            assert float(p.detach().abs().max()) <= 2 * 1e-4 * (1 + 1e-3)
+            continue
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   atol=2e-6, rtol=0, err_msg=name)
+
+
+def test_entry_point_runs_on_cpu(world_of_one, capsys):
+    hvd.shutdown()  # main() brings the world up itself
+    bp.main(["--device", "cpu", "--layers", "1", "--hidden", "32",
+             "--heads", "2", "--seq-len", "16", "--vocab", "50",
+             "--batch-size", "2", "--steps", "2", "--warmup", "1",
+             "--flash"])
+    out = capsys.readouterr().out
+    assert "tokens/sec/gpu:" in out and "loss=" in out
+
+
+def test_bert_base_config_and_flops():
+    args = bp.parse_args(["--flash"])
+    cfg = bp.make_config(args)
+    assert (cfg.num_layers, cfg.hidden_dim, cfg.num_heads, cfg.mlp_dim,
+            cfg.max_len, cfg.vocab_size) == (12, 768, 12, 3072, 512, 30522)
+    assert cfg.dtype == torch.bfloat16 and cfg.attention_fn is not None
+    assert args.batch_size == 8
+    # 6 * params * tokens for the dense part, plus the attention products.
+    h, layers, tok = 768, 12, 8 * 512
+    dense = layers * 12 * h * h + h * 30522
+    want = 6 * dense * tok + 3 * 4 * 8 * 512 * 512 * h * layers
+    assert bp.flops_per_step(cfg, 8, 512) == pytest.approx(want)
+
+
+def test_tokens_are_seeded():
+    args = argparse.Namespace(seed=3, vocab=50, batch_size=2, seq_len=8)
+    a = bp.make_tokens(args, "cpu")
+    assert torch.equal(a, bp.make_tokens(args, "cpu"))
+    assert a.shape == (2, 8) and int(a.max()) < 50
+
+
+FORBIDDEN = ("jax", "flax", "optax", "horovod_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_never_imports_jax():
+    """An AST check, not sys.modules: jax may be pre-imported."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "horovod_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    bad = [(f, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
