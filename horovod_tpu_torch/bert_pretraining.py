@@ -1,18 +1,24 @@
 """BERT-base data-parallel pretraining step on the GPU.
 
-Port of ``examples/bert_pretraining_benchmark.py --flash``: the
-``TransformerLM`` with flash attention (hand-written CUDA kernels),
-cross-entropy of the next token over float32 logits, gradients allreduced
-by :func:`horovod_tpu_torch.DistributedOptimizer` and the fused AdamW
-update (``adamw(1e-4, weight_decay=0.01)``, small tensors through
-per-dtype flat buffers). Defaults are BERT-base (L=12, H=768, A=12, MLP
-3072, seq 512, vocab 30522) at 8 sequences per GPU, bf16 compute and
-float32 parameters. The steps run in a plain Python loop; dropout is off.
+Port of ``examples/bert_pretraining_benchmark.py``: the ``TransformerLM``
+with flash attention (``--flash``, hand-written CUDA kernels), the
+cross-entropy of the next token, gradients allreduced by
+:func:`horovod_tpu_torch.DistributedOptimizer` and the fused AdamW update
+(``adamw(1e-4, weight_decay=0.01)``, small tensors through per-dtype flat
+buffers). The loss is the stock ``F.cross_entropy`` over float32 logits,
+or with ``--fused-loss`` the LM-head kernels of
+:mod:`horovod_tpu_torch.ops.chunked_loss`, which never materialize the
+``[tokens, vocab]`` logits. ``--remat`` recomputes each layer in the
+backward; ``--dropout`` turns the model's dropout (0.1) on, drawn from a
+per-rank generator on the device seeded from ``--seed`` and the rank.
+Defaults are BERT-base (L=12, H=768, A=12, MLP 3072, seq 512, vocab 30522)
+at 8 sequences per GPU, bf16 compute and float32 parameters. The steps run
+in a plain Python loop.
 
 Run (one GPU; one process per GPU with RANK/WORLD_SIZE/LOCAL_RANK/
 MASTER_ADDR/MASTER_PORT set for more)::
 
-    python -m horovod_tpu_torch.bert_pretraining --flash --steps 30
+    python -m horovod_tpu_torch.bert_pretraining --flash --fused-loss
 
 It prints tokens/s per GPU, step time, MFU against the peak of
 :mod:`horovod_tpu_torch.utils.hardware` and the loss.
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import TransformerConfig, TransformerLM
+from horovod_tpu_torch.ops.chunked_loss import fused_softmax_cross_entropy
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.optimizer import Optimizer
 
@@ -48,8 +55,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--flash", action="store_true",
                     help="attention through the flash-attention kernels "
                          "(forward + backward) instead of plain attention")
+    ap.add_argument("--fused-loss", action="store_true",
+                    help="LM-head cross-entropy through the fused kernels: "
+                         "never materializes the [tokens, vocab] logits "
+                         "(ops/chunked_loss.py)")
+    ap.add_argument("--loss-chunk", type=int, default=1024,
+                    help="vocabulary tile of --fused-loss (block_v of the "
+                         "JAX version; the CUDA kernels choose their own)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward "
+                         "(activation memory for FLOPs)")
+    ap.add_argument("--dropout", action="store_true",
+                    help="train with the model's dropout (0.1) active")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the weights and of the token batch")
+                    help="seed of the weights, the token batch and the "
+                         "dropout masks")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 
@@ -59,7 +79,8 @@ def make_config(args: argparse.Namespace) -> TransformerConfig:
         vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
         hidden_dim=args.hidden, mlp_dim=4 * args.hidden,
         max_len=args.seq_len, dtype=torch.bfloat16,
-        attention_fn=flash_attention if args.flash else None)
+        attention_fn=flash_attention if args.flash else None,
+        remat=args.remat)
 
 
 def make_optimizer(model: torch.nn.Module) -> Optimizer:
@@ -78,20 +99,51 @@ def make_tokens(args: argparse.Namespace, device) -> torch.Tensor:
     return torch.from_numpy(tokens.astype(np.int64)).to(device)
 
 
-def loss_fn(model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy of the next token (``roll(tokens, -1)``)."""
-    logits = model(tokens)
+def make_generator(args: argparse.Namespace,
+                   device) -> Optional[torch.Generator]:
+    """This rank's dropout stream (None without ``--dropout``): seeded from
+    ``--seed`` and the rank, so data-parallel replicas draw different masks,
+    as the JAX example's ``fold_in(key, rank)``."""
+    if not args.dropout:
+        return None
+    seed = int(np.random.SeedSequence([args.seed, hvd.rank()])
+               .generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def loss_options(args: argparse.Namespace, device) -> dict:
+    """The keyword arguments of :func:`loss_fn` that ``args`` select."""
+    return {"fused_loss": args.fused_loss, "loss_chunk": args.loss_chunk,
+            "generator": make_generator(args, device)}
+
+
+def loss_fn(model: torch.nn.Module, tokens: torch.Tensor,
+            fused_loss: bool = False, loss_chunk: int = 1024,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Mean cross-entropy of the next token (``roll(tokens, -1)``): over the
+    float32 logits of ``lm_head``, or with ``fused_loss`` through
+    :func:`fused_softmax_cross_entropy` on the pre-head hidden states.
+    Dropout is active when a ``generator`` is given."""
     target = torch.roll(tokens, -1, dims=1)
+    deterministic = generator is None
+    if fused_loss:
+        hidden = model(tokens, deterministic=deterministic,
+                       return_hidden=True, generator=generator)
+        head = model.lm_head
+        return fused_softmax_cross_entropy(
+            hidden, head.weight, head.bias, target, block_v=loss_chunk).mean()
+    logits = model(tokens, deterministic=deterministic, generator=generator)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            target.reshape(-1))
 
 
 def train_step(model: torch.nn.Module, opt: Optimizer,
-               tokens: torch.Tensor) -> torch.Tensor:
+               tokens: torch.Tensor, **options) -> torch.Tensor:
     """Forward, backward, allreduce and update; returns the loss averaged
-    over ranks (a device tensor: reading it waits for the step)."""
+    over ranks (a device tensor: reading it waits for the step).
+    ``options`` are :func:`loss_fn`'s."""
     opt.zero_grad()
-    loss = loss_fn(model, tokens)
+    loss = loss_fn(model, tokens, **options)
     loss.backward()
     opt.step()
     return hvd.allreduce(loss.detach())
@@ -99,8 +151,8 @@ def train_step(model: torch.nn.Module, opt: Optimizer,
 
 def flops_per_step(cfg: TransformerConfig, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 3x the forward's matmuls (the
-    backward does two products per forward product); recomputation inside
-    the flash backward is not counted."""
+    backward does two products per forward product); recomputation (inside
+    the flash and fused-loss backward, or of ``--remat``) is not counted."""
     h, layers = cfg.hidden_dim, cfg.num_layers
     tokens = batch * seq
     dense = layers * (4 * h * h + 2 * h * cfg.mlp_dim) + h * cfg.vocab_size
@@ -127,15 +179,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     model, opt, tokens = build(args)
     device = hvd.device()
+    options = loss_options(args, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"# params: {n_params / 1e6:.1f}M, {hvd.size()} rank(s) on "
           f"{device.type}")
     for _ in range(args.warmup):
-        train_step(model, opt, tokens)
+        train_step(model, opt, tokens, **options)
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        loss = train_step(model, opt, tokens)
+        loss = train_step(model, opt, tokens, **options)
     loss = float(loss)
     _sync(device)
     step_time = (time.perf_counter() - t0) / max(1, args.steps)

@@ -4,7 +4,9 @@ Counterpart of :mod:`horovod_tpu.models.transformer`, with the numerics
 of the flax original: float32 parameters, bf16 compute (each dense layer
 casts its input and weights to the compute dtype), layer norms with
 epsilon 1e-6 that take their statistics in float32, the tanh GELU, and an
-untied float32 LM head. Attention is pluggable through
+untied float32 LM head. ``TransformerConfig.remat`` recomputes each layer
+in the backward (``torch.utils.checkpoint``), trading FLOPs for activation
+memory as flax's ``nn.remat`` does. Attention is pluggable through
 ``TransformerConfig.attention_fn`` (signature ``(q, k, v, bias) -> out``
 on (batch, seq, heads, head_dim)), so
 :func:`horovod_tpu_torch.ops.flash_attention.flash_attention` drops in.
@@ -24,6 +26,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 AttentionFn = Callable[..., torch.Tensor]
 
@@ -60,6 +63,7 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     causal: bool = False
     attention_fn: Optional[AttentionFn] = None
+    remat: bool = False  # checkpoint each layer: FLOPs for memory
 
     @property
     def head_dim(self) -> int:
@@ -192,6 +196,32 @@ class EncoderLayer(nn.Module):
         return x + self.dropout(h, deterministic, generator)
 
 
+def _checkpointed(layer: EncoderLayer, x, deterministic: bool,
+                  generator: Optional[torch.Generator]):
+    """``layer(x)`` under ``torch.utils.checkpoint``. The checkpoint
+    restores the global RNG for the recompute but not an explicit
+    generator, so the recompute rewinds ``generator`` to where this layer's
+    forward found it (the same dropout masks) and then puts it back where
+    the stream had got to."""
+    start = None
+    if generator is not None and not deterministic:
+        start = generator.get_state()
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1 or start is None:
+            return layer(x, None, deterministic, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(x, None, deterministic, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerLM(nn.Module):
     """Token-in, logits-out transformer (pre-norm). With ``cfg.causal`` it
     is a GPT-style LM; without, a BERT-style masked-LM encoder."""
@@ -223,8 +253,12 @@ class TransformerLM(nn.Module):
                 f"sequence length {seq} exceeds max_len {cfg.max_len}")
         x = self.tok_embed(tokens)
         x = x + self.pos_embed(torch.arange(seq, device=tokens.device))[None]
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, None, deterministic, generator)
+            if remat:
+                x = _checkpointed(layer, x, deterministic, generator)
+            else:
+                x = layer(x, None, deterministic, generator)
         x = self.final_norm(x)
         if return_hidden:
             # Pre-head hidden states, for heads that consume the lm_head

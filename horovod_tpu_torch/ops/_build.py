@@ -17,6 +17,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
@@ -25,7 +26,8 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict = {}  # name -> lock of that library's build and load
 _libs: dict = {}
 # name -> {"seconds": build time or 0.0, "cached": bool, "path": str}
 BUILD_INFO: dict = {}
@@ -86,9 +88,20 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Builds
+    of different libraries may run at the same time."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(build(name))
         return lib
+
+
+def load_all(names) -> dict:
+    """Load several libraries, building them in parallel (one ``nvcc`` per
+    source, all started together); a failed build raises."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,16 +1,17 @@
 """Where the time of the BERT training step goes on the GPU.
 
 Runs the main path of :mod:`horovod_tpu_torch.bert_pretraining` (same
-flags; BERT-base ``--flash`` by default) under ``torch.profiler`` for a
-few steps after a warm-up, and prints one JSON line: device time per step
-summed by kernel class (the three flash kernels, matmuls, the optimizer's
+flags: BERT-base, with ``--flash`` and ``--fused-loss`` as given) under
+``torch.profiler`` for a few steps after a warm-up, and prints one JSON
+line: device time per step summed by kernel class (the three flash
+kernels, the three LM-head cross-entropy kernels, matmuls, the optimizer's
 multi-tensor kernels, collectives, the rest), the host-clock step time,
 the device's busy share of it, the costliest kernels, the host operators
 with the most self CPU time (the profiler's own cost per operator
 inflates the step time it reports), and, from ``cProfile`` over as many
 steps again, the Python functions with the most own time::
 
-    python -m horovod_tpu_torch.utils.step_profile --flash
+    python -m horovod_tpu_torch.utils.step_profile --flash --fused-loss
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ _CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),
+    ("ce_fwd", ("ce_fwd_kernel", "ce_fwd_combine_kernel")),
+    ("ce_dx", ("ce_dx_kernel",)),
+    ("ce_dw", ("ce_dw_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("optimizer", ("multi_tensor_apply", "foreach")),
     ("collective", ("nccl",)),
@@ -56,15 +60,16 @@ def _device_us(event) -> float:
 def main(argv=None) -> None:
     args = bp.parse_args(argv)
     model, opt, tokens = bp.build(args)
+    options = bp.loss_options(args, tokens.device)
     for _ in range(3):
-        bp.train_step(model, opt, tokens)
+        bp.train_step(model, opt, tokens, **options)
     torch.cuda.synchronize()
     steps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            bp.train_step(model, opt, tokens)
+            bp.train_step(model, opt, tokens, **options)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages()
@@ -83,7 +88,7 @@ def main(argv=None) -> None:
     pstats_prof = cProfile.Profile()
     pstats_prof.enable()
     for _ in range(steps):
-        bp.train_step(model, opt, tokens)
+        bp.train_step(model, opt, tokens, **options)
     torch.cuda.synchronize()
     pstats_prof.disable()
     py = sorted(pstats.Stats(pstats_prof).stats.items(),
@@ -92,7 +97,8 @@ def main(argv=None) -> None:
         "device": torch.cuda.get_device_name(0),
         "config": {"layers": args.layers, "hidden": args.hidden,
                    "seq_len": args.seq_len, "batch": args.batch_size,
-                   "flash": args.flash},
+                   "flash": args.flash, "fused_loss": args.fused_loss,
+                   "remat": args.remat, "dropout": args.dropout},
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": by_class,
         "device_busy_share": busy / wall_ms if wall_ms else None,

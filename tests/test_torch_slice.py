@@ -1,5 +1,7 @@
-"""The whole slice: two BERT training steps of the PyTorch port against the
-JAX package, and the port's independence from JAX.
+"""The whole slices: two BERT training steps of the PyTorch port against
+the JAX package, with the stock loss (slice 1) and with the fused LM-head
+loss (slice 2), the ``--remat`` and ``--dropout`` options, and the port's
+independence from JAX.
 
 Tiny config (2 layers, hidden 64, 2 heads, MLP 256, vocab 97, seq 32),
 float32 compute, flash attention on both sides (Pallas in interpret mode
@@ -7,7 +9,10 @@ for JAX, the plain versions of the CUDA kernels for the port), params
 converted from the flax init. The JAX step is the example's
 ``value_and_grad`` + ``fuse(optax.adamw(1e-4, weight_decay=0.01))``, which
 is what ``DistributedOptimizer(..., fused_update=True)`` runs in a world
-of one; the port's is ``bert_pretraining.train_step``. Tolerances: loss
+of one; the port's is ``bert_pretraining.train_step``. With the fused loss
+both sides take the pre-head hidden states (``return_hidden``) into
+``fused_softmax_cross_entropy`` (Pallas in interpret mode for JAX) with a
+32-column vocabulary tile. Tolerances: loss
 rtol 1e-5, step-1 gradients atol 1e-4, parameters after two steps atol
 2e-6 (2% of one lr=1e-4 Adam step: where a gradient is ~1e-8, eps-sized,
 the frameworks' float32 rounding moves its update by that much). The key
@@ -18,6 +23,7 @@ bound is checked.
 
 import argparse
 import ast
+import dataclasses
 import os
 
 import jax
@@ -30,6 +36,7 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu.jax.fused import fuse
 from horovod_tpu.models import transformer as jtr
+from horovod_tpu.ops.chunked_loss import fused_softmax_cross_entropy as jfused
 from horovod_tpu.ops.flash_attention import flash_attention as jflash
 from horovod_tpu_torch import bert_pretraining as bp
 from horovod_tpu_torch.convert import params_from_jax
@@ -48,7 +55,7 @@ def world_of_one():
     hvd.shutdown()
 
 
-def test_two_train_steps_match_jax(world_of_one):
+def _two_steps_match_jax(fused_loss):
     tokens = np.random.RandomState(0).randint(0, 97, (2, 32))
     jmodel = jtr.TransformerLM(jtr.TransformerConfig(
         **TINY, dtype=jnp.float32, attention_fn=jflash))
@@ -59,9 +66,15 @@ def test_two_train_steps_match_jax(world_of_one):
     @jax.jit
     def jstep(params, state, toks):
         def loss_fn(p):
+            target = jnp.roll(toks, -1, axis=1)
+            if fused_loss:
+                hidden = jmodel.apply({"params": p}, toks, return_hidden=True)
+                head = p["lm_head"]
+                return jfused(hidden, head["kernel"], head["bias"], target,
+                              block_v=32).mean()
             logits = jmodel.apply({"params": p}, toks)
             return optax.softmax_cross_entropy_with_integer_labels(
-                logits, jnp.roll(toks, -1, axis=1)).mean()
+                logits, target).mean()
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
         upd, state = jopt.update(grads, state, params)
@@ -76,14 +89,18 @@ def test_two_train_steps_match_jax(world_of_one):
     for step in range(2):
         params, jstate, jloss, jgrads = jstep(params, jstate,
                                               jnp.asarray(tokens))
-        tloss = bp.train_step(tmodel, opt, ttok)
+        tloss = bp.train_step(tmodel, opt, ttok, fused_loss=fused_loss,
+                              loss_chunk=32)
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
         if step == 0:
             want = params_from_jax(jax.device_get(jgrads))
+            first = {}
             for name, p in tmodel.named_parameters():
                 np.testing.assert_allclose(p.grad.numpy(),
                                            want[name].numpy(), atol=1e-4,
                                            rtol=0, err_msg=name)
+                first[name] = np.minimum(np.abs(p.grad.numpy()),
+                                         np.abs(want[name].numpy()))
     want = params_from_jax(jax.device_get(params))
     for name, p in tmodel.named_parameters():
         if name.endswith("attn.key.bias"):
@@ -92,8 +109,30 @@ def test_two_train_steps_match_jax(world_of_one):
             # step on either side: only the bound is common.
             assert float(p.detach().abs().max()) <= 2 * 1e-4 * (1 + 1e-3)
             continue
-        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
-                                   atol=2e-6, rtol=0, err_msg=name)
+        got, ref = p.detach().numpy(), want[name].numpy()
+        if fused_loss:
+            # Adam's first update is lr * g / (|g| + eps), eps = 1e-8. Where
+            # the first gradient is itself eps-sized (|g| < 1e-6 on either
+            # side), each side's float32 rounding of g becomes a different
+            # fraction of lr, as for the key biases, and only the bound of
+            # two steps of at most lr each is common. The fused loss sums
+            # the head's gradient in another order than the logits path
+            # and moves such elements (layers.0.mlp_out.weight[53, 89]:
+            # first gradients -6.05e-8 vs -4.11e-8, parameters 5.4e-6
+            # apart); their first gradients are held to atol 1e-4 above.
+            eps_sized = first[name] < 1e-6
+            assert np.abs(got - ref)[eps_sized].max(initial=0.0) <= (
+                4 * 1e-4 * (1 + 1e-3)), name
+            got, ref = got[~eps_sized], ref[~eps_sized]
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0, err_msg=name)
+
+
+def test_two_train_steps_match_jax(world_of_one):
+    _two_steps_match_jax(fused_loss=False)
+
+
+def test_two_fused_loss_train_steps_match_jax(world_of_one):
+    _two_steps_match_jax(fused_loss=True)
 
 
 def test_entry_point_runs_on_cpu(world_of_one, capsys):
@@ -104,6 +143,91 @@ def test_entry_point_runs_on_cpu(world_of_one, capsys):
              "--flash"])
     out = capsys.readouterr().out
     assert "tokens/sec/gpu:" in out and "loss=" in out
+
+
+def test_entry_point_runs_fused_loss_on_cpu(world_of_one, capsys):
+    hvd.shutdown()
+    bp.main(["--device", "cpu", "--layers", "1", "--hidden", "32",
+             "--heads", "2", "--seq-len", "16", "--vocab", "50",
+             "--batch-size", "2", "--steps", "2", "--warmup", "1",
+             "--flash", "--fused-loss", "--loss-chunk", "16", "--remat",
+             "--dropout"])
+    out = capsys.readouterr().out
+    assert "tokens/sec/gpu:" in out and "loss=" in out
+
+
+def _tiny_pair(remat):
+    """Two float32 tiny models with the same weights, without and with
+    ``remat`` (or both without)."""
+    cfg = ttr.TransformerConfig(**TINY, dtype=torch.float32,
+                                attention_fn=bp.flash_attention)
+    base = ttr.TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
+    other = ttr.TransformerLM(dataclasses.replace(cfg, remat=remat))
+    other.load_state_dict(base.state_dict())
+    return base, other
+
+
+def _loss_and_grads(model, tokens, seed=None, **options):
+    generator = None
+    if seed is not None:
+        generator = torch.Generator().manual_seed(seed)
+    model.zero_grad(set_to_none=True)
+    loss = bp.loss_fn(model, tokens, generator=generator, **options)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("fused_loss", [False, True])
+def test_remat_is_bitwise_equal(fused_loss):
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 97, (2, 32)))
+    base, remat = _tiny_pair(remat=True)
+    opts = dict(fused_loss=fused_loss, loss_chunk=32)
+    loss0, g0 = _loss_and_grads(base, tokens, **opts)
+    loss1, g1 = _loss_and_grads(remat, tokens, **opts)
+    assert torch.equal(loss0, loss1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+
+
+def test_remat_with_dropout_replays_the_masks():
+    """The recompute rewinds the explicit generator: --remat --dropout has
+    the same gradients as --dropout alone from the same seed, and leaves
+    the generator where a plain step leaves it."""
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 97, (2, 32)))
+    base, remat = _tiny_pair(remat=True)
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    grads = []
+    for model, gen in zip((base, remat), gens):
+        model.zero_grad(set_to_none=True)
+        loss = bp.loss_fn(model, tokens, generator=gen)
+        loss.backward()
+        grads.append((loss.detach(),
+                      {n: p.grad for n, p in model.named_parameters()}))
+    assert torch.equal(grads[0][0], grads[1][0])
+    for name, g in grads[0][1].items():
+        assert torch.equal(g, grads[1][1][name]), name
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def test_dropout_changes_the_loss_and_is_seeded(world_of_one):
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 97, (2, 32)))
+    base, same = _tiny_pair(remat=False)
+    plain, _ = _loss_and_grads(base, tokens)
+    first, _ = _loss_and_grads(base, tokens, seed=3)
+    again, _ = _loss_and_grads(same, tokens, seed=3)
+    other, _ = _loss_and_grads(same, tokens, seed=4)
+    assert not torch.equal(first, plain)
+    assert torch.equal(first, again)
+    assert not torch.equal(first, other)
+    # The entry point's stream: from --seed, and different on each rank.
+    args = bp.parse_args(["--dropout", "--seed", "3", "--device", "cpu"])
+    draw = lambda: torch.rand(4, generator=bp.make_generator(args, "cpu"))  # noqa: E731
+    assert torch.equal(draw(), draw())
+    assert bp.make_generator(bp.parse_args(["--device", "cpu"]), "cpu") is None
+    rank0 = draw()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bp.hvd, "rank", lambda: 1)
+        assert not torch.equal(draw(), rank0)
 
 
 def test_bert_base_config_and_flops():
