@@ -9,30 +9,40 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final line:
 
 1. ``device``: ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. ``build``: the nvcc builds of the flash-attention and LM-head loss
-   kernels, started together (or their reuse), and the compiler's
-   register, spill and shared-memory report.
+2. ``build``: the nvcc builds of the three kernel sources (flash
+   attention, the wgmma flash forward, the LM-head loss), started together
+   (or their reuse), the compiler's register, spill and shared-memory
+   report, and the HGMMA (wgmma) and UTMALDG (TMA load) instruction counts
+   of the wgmma forward from ``cuobjdump -sass`` of its library; a count of
+   0, or a compiler note that its wgmma were serialized, fails the phase.
 3. ``flash_fwd``, ``flash_dq``, ``flash_dkv``: each CUDA kernel against its
    plain PyTorch version on the same inputs, at the training path's shape
-   (8, 512, 12, 64) bf16 and on extra cases (causal, a ragged sequence, head
-   dim 32). The tolerance is stated per output. Each line has the kernel's
-   median time, the plain version's, the bound of the card for the same
-   work, and ``F.scaled_dot_product_attention`` as a yardstick (timed here,
-   never used by the port).
+   (8, 512, 12, 64) bf16 and on extra cases (causal, ragged sequences, head
+   dims 32 and 128, head dims 8 and 48 padded by the wrapper, float32
+   inputs), each case naming the forward route it took. The tolerance is
+   stated per output. Each line has the kernel's median time, the plain
+   version's, the bound of the card for the same work, and one PyTorch
+   call computing the same function as a yardstick (timed here, never used
+   by the port): ``F.scaled_dot_product_attention``'s forward for the
+   forward, whose line also has the ``mma.sync`` route's time at the same
+   shape; the flash backward
+   (``aten._scaled_dot_product_flash_attention_backward``, dQ, dK and dV
+   in one call) for the other two.
 4. ``ce_fwd``, ``ce_dx``, ``ce_dw``: the LM-head cross-entropy kernels
    against their plain versions at the training path's shape (4096 tokens,
    hidden 768, vocabulary 30522) and on extra cases (ragged token counts,
-   small ragged vocabularies, hidden 256 and 512), each with labels at
-   columns 0 and V-1 and rows whose cotangent is 0. Each line has the
-   kernel's median time, the plain version's, the bound, and the cuBLAS bf16
-   products of the same shapes as a yardstick (timed here, never used by
-   the port).
+   small ragged vocabularies, hidden 256, 512 and 1024, hidden 16 padded
+   by the wrapper, float32 hidden states), each with labels at columns 0
+   and V-1 and rows whose cotangent is 0. Each line has the kernel's median
+   time, the plain version's, the bound, and the cuBLAS bf16 products of
+   the same shapes as a yardstick (timed here, never used by the port).
 5. ``bert_step``: slice 1, full-width BERT-base training with ``--flash``
    through the port's entry points (``horovod_tpu_torch.bert_pretraining``):
    3 warm-up and 10 timed steps on one fixed random batch with the launch
-   counters zeroed just before and read just after; the loss must be finite
-   and fall, and one forward/backward with the plain attention must agree
-   with the kernel path (loss within 2e-2, gradient cosine >= 0.99).
+   counters zeroed just before and read just after (all 12 forward launches
+   of a step on the wgmma route); the loss must be finite and fall, and one
+   forward/backward with the plain attention must agree with the kernel
+   path (loss within 2e-2, gradient cosine >= 0.99).
 6. ``bert_step_fused_loss``: slice 2, the same with ``--flash
    --fused-loss`` (full width and depth, 3 + 10 steps): each LM-head kernel
    must launch once per step and each flash kernel 12 times, the loss must
@@ -41,13 +51,19 @@ exits non-zero without the final line:
    logits) on the same weights and batch: loss within 2e-2, every
    gradient's cosine >= 0.99. Peak memory and step time are printed beside
    slice 1's.
-7. The ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+7. ``bert_large_fused_loss``: BERT-large widths (hidden 1024, 16 heads, MLP
+   4096) with ``--flash --fused-loss``, depth cut to 2 layers: 3 steps on
+   the card, the loss finite and falling, the route counters shown (the
+   LM-head kernels at their hidden-1024 instance).
+8. The ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -59,7 +75,10 @@ import torch
 # in float32 from the same bf16 inputs and rounds once at the end): bf16
 # outputs within 2% of the largest reference magnitude (~2.5 bf16 ulps
 # there; the kernels round P and dS to bf16 for the tensor cores), the
-# float32 row log-sum-exp within 1e-3.
+# float32 row log-sum-exp within 1e-3. Float32 inputs reach the kernels
+# rounded to bf16 (the wrappers' documented precision), so their plain
+# version runs on that rounding, and their outputs are held to the same
+# tolerances.
 BF16_REL_TOL = 2e-2
 LSE_ABS_TOL = 1e-3
 # The LM-head kernels' float32 outputs (dW, db) against their plain
@@ -73,22 +92,74 @@ F32_REL_TOL = 1e-3
 
 MAIN_SHAPE = (8, 512, 12, 64)  # (batch, seq, heads, head_dim) of BERT-base
 LAYERS = 12  # each kernel launches once per layer per step (checked below)
-EXTRA_CASES = [  # (b*h, seq, head_dim, causal)
-    (96, 384, 64, True), (6, 200, 64, False), (6, 200, 64, True),
-    (8, 128, 32, False), (8, 136, 32, True)]
+BF16, F32 = torch.bfloat16, torch.float32
+EXTRA_CASES = [  # (b*h, seq, head_dim, causal, dtype)
+    (96, 384, 64, True, BF16), (6, 200, 64, False, BF16),
+    (6, 200, 64, True, BF16), (8, 128, 32, False, BF16),
+    (8, 136, 32, True, BF16), (24, 512, 128, False, BF16),
+    (24, 384, 128, True, BF16), (6, 200, 128, True, BF16),
+    (8, 136, 8, True, BF16), (8, 200, 48, False, BF16),
+    (6, 70, 64, False, BF16), (6, 129, 128, True, BF16),
+    (96, 512, 64, False, F32)]
 SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+WGMMA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_fwd_wgmma.cu"
 REPLACES = {"flash_fwd": "horovod_tpu/ops/flash_attention.py:67",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:168",
             "flash_dkv": "horovod_tpu/ops/flash_attention.py:199"}
 
 CE_MAIN = (4096, 768, 30522)  # (tokens = 8 x 512, hidden, vocabulary)
-CE_EXTRA = [  # (tokens, hidden, vocabulary)
-    (1000, 768, 30522), (64, 768, 70), (300, 768, 1000), (100, 256, 70),
-    (77, 512, 1000)]
+CE_EXTRA = [  # (tokens, hidden, vocabulary, hidden dtype)
+    (1000, 768, 30522, BF16), (64, 768, 70, BF16), (300, 768, 1000, BF16),
+    (100, 256, 70, BF16), (77, 512, 1000, BF16),
+    (4096, 1024, 30522, BF16), (77, 1024, 1000, BF16), (300, 16, 1000, BF16),
+    (300, 768, 1000, F32)]
 CE_SOURCE = "horovod_tpu_torch/ops/csrc/chunked_loss.cu"
 CE_REPLACES = {"ce_fwd": "horovod_tpu/ops/chunked_loss.py:181",
                "ce_dx": "horovod_tpu/ops/chunked_loss.py:233",
                "ce_dw": "horovod_tpu/ops/chunked_loss.py:254"}
+
+
+def ptxas_report(log):
+    """``{kernel<instance>: "R registers, S B spill stores, L B spill
+    loads"}`` from an ``nvcc -Xptxas -v`` log, and its performance notes
+    (e.g. wgmma serialized by the compiler)."""
+    kernels, notes, name = {}, [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            short = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                              entry.group(1))
+            name = (f"{short.group(1)}<{short.group(2)}>" if short.group(2)
+                    else short.group(1))
+            kernels[name] = ""
+        elif "spill stores" in line and name:
+            spills = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            kernels[name] += ", ".join(f"{n} B spill {k}" for n, k in spills)
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            kernels[name] = f"{regs} registers, {kernels[name]}"
+        elif "Performance Loss" in line:
+            notes.append(line.strip())
+    return kernels, sorted(set(notes))
+
+
+def wgmma_sass_counts(library):
+    """HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions in the
+    compiled flash_fwd_wgmma kernels of ``library`` (``cuobjdump -sass``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", library],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {"HGMMA": 0, "UTMALDG": 0}
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "flash_fwd_wgmma_kernel" in line
+        elif inside:
+            for op in counts:
+                counts[op] += op in line
+    return counts
 
 
 def emit(phase, **fields):
@@ -156,44 +227,64 @@ def check_bf16(name, got, want):
     return err, err / scale
 
 
-def kernel_inputs(bh, s, d, seed):
+def kernel_inputs(bh, s, d, seed, dtype=BF16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(bh, s, d, device="cuda", generator=g)
-            .to(torch.bfloat16) for _ in range(4)]
+    return [torch.randn(bh, s, d, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]
 
 
-def check_kernels(fa, bh, s, d, causal, seed=0):
-    """Each kernel against its plain version on one input; returns the
-    inputs and per-kernel max errors."""
-    q, k, v, do = kernel_inputs(bh, s, d, seed)
+def check_kernels(fa, bh, s, d, causal, dtype=BF16, seed=0):
+    """Each kernel against its plain version on one input (for float32
+    inputs: on their bf16 rounding, what the kernels compute on); returns
+    the inputs, per-kernel max errors and the forward route taken."""
+    q, k, v, do = kernel_inputs(bh, s, d, seed, dtype)
+    before = dict(fa.LAUNCHES)
     o, lse = fa.flash_fwd(q, k, v, causal)
-    ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
+    route = next(r for r in fa.FWD_ROUTES
+                 if fa.LAUNCHES["flash_fwd_" + r] > before["flash_fwd_" + r])
     delta = fa.attention_delta(do, o)
     dq = fa.flash_dq(q, k, v, lse, delta, do, causal)
     dk, dv = fa.flash_dkv(q, k, v, lse, delta, do, causal)
-    rdq = fa.flash_dq_reference(q, k, v, lse, delta, do, causal)
-    rdk, rdv = fa.flash_dkv_reference(q, k, v, lse, delta, do, causal)
+    rq, rk, rv, rdo = (t.to(BF16) for t in (q, k, v, do))
+    ro, rlse = fa.flash_fwd_reference(rq, rk, rv, causal)
+    rdq = fa.flash_dq_reference(rq, rk, rv, lse, delta, rdo, causal)
+    rdk, rdv = fa.flash_dkv_reference(rq, rk, rv, lse, delta, rdo, causal)
     torch.cuda.synchronize()
-    tag = f"({bh},{s},{d},causal={causal})"
+    tag = f"({bh},{s},{d},causal={causal},{dtype})"
+    for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        if t.dtype != dtype or tuple(t.shape) != (bh, s, d):
+            raise AssertionError(f"{name}{tag}: {t.dtype} {tuple(t.shape)}")
     errs = {name: check_bf16(name + tag, got, want) for name, got, want in
             (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
     lse_err, lse_scale = max_err(lse, rlse)
     if not lse_err <= LSE_ABS_TOL:
         raise AssertionError(f"lse{tag}: max abs err {lse_err}")
     errs["lse"] = (lse_err, lse_err / lse_scale)
-    return (q, k, v, do, o, lse, delta), errs
+    if route != fa.fwd_route(dtype, d):
+        raise AssertionError(f"flash_fwd{tag} took the {route} route")
+    return (q, k, v, do, o, lse, delta), errs, route
+
+
+def sdpa_flash_backward(q4, k4, v4, do4):
+    """One call of PyTorch's flash-attention backward (dQ, dK and dV
+    together) on (b, h, s, d) inputs, from its own forward's outputs: the
+    library yardstick of the dQ and dK/dV kernels."""
+    out, lse, cq, ck, mq, mk, seed, offset, _ = (
+        torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4))
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
 
 
 def kernel_phases(fa, peak):
     """Phase 3: correctness on every case, timing at the main shape."""
     b, s, h, d = MAIN_SHAPE
     bh = b * h
-    (q, k, v, do, o, lse, delta), main_errs = check_kernels(fa, bh, s, d,
-                                                            False)
+    (q, k, v, do, o, lse, delta), main_errs, main_route = check_kernels(
+        fa, bh, s, d, False)
     extra = []
-    for case in EXTRA_CASES:
-        _, errs = check_kernels(fa, *case, seed=1)
-        extra.append({"case": list(case),
+    for *case, dtype in EXTRA_CASES:
+        _, errs, route = check_kernels(fa, *case, dtype, seed=1)
+        extra.append({"case": [*case, str(dtype)], "fwd_route": route,
                       "max_abs_err": {n: e[0] for n, e in errs.items()},
                       "max_rel_err": {n: e[1] for n, e in errs.items()}})
 
@@ -227,6 +318,15 @@ def kernel_phases(fa, peak):
         out.backward(do4)
 
     sdpa_fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
+    sdpa_bwd_ms = median_ms(sdpa_flash_backward(q4, k4, v4,
+                                                do.view(b, h, s, d)))
+    # The forward's routes at the same shape, in the same call.
+    mma_fwd = lambda: fa.flash_fwd(q, k, v, False, route="mma")  # noqa: E731
+    mma_ms = median_ms(mma_fwd)
+    route_host_us = {"wgmma": host_us(calls["flash_fwd"][0]),
+                     "mma": host_us(mma_fwd)}
+    library_of = {"flash_fwd": sdpa_fwd_ms, "flash_dq": sdpa_bwd_ms,
+                  "flash_dkv": sdpa_bwd_ms}
     errs_of = {"flash_fwd": {"o": main_errs["o"], "lse": main_errs["lse"]},
                "flash_dq": {"dq": main_errs["dq"]},
                "flash_dkv": {"dk": main_errs["dk"], "dv": main_errs["dv"]}}
@@ -243,8 +343,18 @@ def kernel_phases(fa, peak):
             "ms": median_ms(kernel), "plain_ms": median_ms(plain),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": sdpa_fwd_ms if name == "flash_fwd" else None,
+            "library_ms": library_of[name],
         }
+        fwd_fields = {}
+        if name == "flash_fwd":
+            # The main path's forward is the wgmma kernel; the mma.sync
+            # route's time at the same shape stands beside it.
+            rows[name].update(source=WGMMA_SOURCE,
+                              kernel="flash_fwd_wgmma_kernel",
+                              fwd_route=main_route, mma_sync_ms=mma_ms,
+                              mma_sync_source=SOURCE)
+            fwd_fields = {"fwd_route": main_route, "mma_sync_ms": mma_ms,
+                          "host_us_per_call_by_route": route_host_us}
         emit(name, shape=[bh, s, d], causal=False,
              max_abs_err={n: e[0] for n, e in errs_of[name].items()},
              max_rel_err={n: e[1] for n, e in errs_of[name].items()},
@@ -255,7 +365,13 @@ def kernel_phases(fa, peak):
              bound_ms=rows[name]["bound_ms"],
              bound_by=rows[name]["bound_by"],
              launches_per_step=LAYERS, host_us_per_call=host_us(kernel),
+             library_ms=rows[name]["library_ms"],
+             library="F.scaled_dot_product_attention forward"
+             if name == "flash_fwd" else
+             "aten._scaled_dot_product_flash_attention_backward (dQ, dK, "
+             "dV in one call)",
              sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+             **fwd_fields,
              extra_cases=extra if name == "flash_fwd" else None)
     return rows
 
@@ -270,12 +386,12 @@ def check_f32(name, got, want):
     return err, err / scale
 
 
-def ce_inputs(n, h, v, seed):
+def ce_inputs(n, h, v, seed, dtype=BF16):
     """Unit-variance hidden states, a head at lecun-normal scale (logits
     ~ N(0, 1)), labels that include columns 0 and V-1, and a non-uniform
     cotangent of mean-loss size that is 0 on rows 2-4."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(n, h, device="cuda", generator=g).to(torch.bfloat16)
+    x = torch.randn(n, h, device="cuda", generator=g).to(dtype)
     w = (torch.randn(v, h, device="cuda", generator=g) * h ** -0.5).to(
         torch.bfloat16)
     b = torch.randn(v, device="cuda", generator=g) * 0.1
@@ -287,19 +403,25 @@ def ce_inputs(n, h, v, seed):
     return x, w, b, labels, cot
 
 
-def check_ce(cl, n, h, v, seed=0):
+def check_ce(cl, n, h, v, dtype=BF16, seed=0):
     """Each loss kernel against its plain version on one input (the
-    backward kernels from the kernel's lse, as in training); returns the
-    inputs and per-output errors."""
-    x, w, b, labels, cot = ce_inputs(n, h, v, seed)
-    loss, lse = cl.ce_fwd(x, w, b, labels)
-    dx = cl.ce_dx(x, w, b, labels, lse, cot)
-    dw, db = cl.ce_dw(x, w, b, labels, lse, cot)
-    rloss, rlse = cl.ce_fwd_reference(x, w, b, labels)
-    rdx = cl.ce_dx_reference(x, w, b, labels, lse, cot)
-    rdw, rdb = cl.ce_dw_reference(x, w, b, labels, lse, cot)
+    backward kernels from the kernel's lse, as in training). The kernels
+    take the operands as ``kernel_operands`` makes them (bf16, zero-padded
+    to the kernels' hidden size); the plain versions run on the unpadded
+    bf16 operands, so the comparison holds the padding too. Returns the
+    kernels' operands and per-output errors."""
+    x, w, b, labels, cot = ce_inputs(n, h, v, seed, dtype)
+    xk, wk = cl.kernel_operands(x, w)
+    loss, lse = cl.ce_fwd(xk, wk, b, labels)
+    dx = cl.ce_dx(xk, wk, b, labels, lse, cot)[:, :h]
+    dw, db = cl.ce_dw(xk, wk, b, labels, lse, cot)
+    dw = dw[:, :h]
+    xr, wr = x.to(BF16), w.to(BF16)
+    rloss, rlse = cl.ce_fwd_reference(xr, wr, b, labels)
+    rdx = cl.ce_dx_reference(xr, wr, b, labels, lse, cot)
+    rdw, rdb = cl.ce_dw_reference(xr, wr, b, labels, lse, cot)
     torch.cuda.synchronize()
-    tag = f"({n},{h},{v})"
+    tag = f"({n},{h},{v},{dtype})"
     errs = {}
     for name, got, want in (("loss", loss, rloss), ("lse", lse, rlse)):
         err, scale = max_err(got, want)
@@ -311,7 +433,20 @@ def check_ce(cl, n, h, v, seed=0):
     errs["db"] = check_f32("db" + tag, db, rdb)
     if float(dx[2:5].float().abs().max()) != 0.0:
         raise AssertionError(f"dx{tag}: rows with a zero cotangent moved")
-    return (x, w, b, labels, cot, lse), errs
+    if dtype != BF16 or xk.shape[1] != h:
+        # Through the public function: the kernels run (launch counts),
+        # and dx comes back in the hidden states' dtype and width.
+        xs, ws = x.clone().requires_grad_(), w.float().requires_grad_()
+        before = dict(cl.LAUNCHES)
+        cl.fused_softmax_cross_entropy(xs, ws, b, labels).backward(cot)
+        if any(cl.LAUNCHES[k] != before[k] + 1 for k in before):
+            raise AssertionError(f"fused{tag}: launches {cl.LAUNCHES}")
+        if xs.grad.dtype != dtype or tuple(xs.grad.shape) != (n, h) or (
+                tuple(ws.grad.shape) != (v, h)):
+            raise AssertionError(f"fused{tag}: dx {xs.grad.dtype} "
+                                 f"{tuple(xs.grad.shape)}")
+        errs["fused_dx"] = check_bf16("fused_dx" + tag, xs.grad, rdx)
+    return (xk, wk, b, labels, cot, lse), errs
 
 
 def ce_phases(cl, peak):
@@ -320,9 +455,9 @@ def ce_phases(cl, peak):
     n, h, v = CE_MAIN
     (x, w, b, labels, cot, lse), main_errs = check_ce(cl, n, h, v)
     extra = []
-    for case in CE_EXTRA:
-        _, errs = check_ce(cl, *case, seed=1)
-        extra.append({"case": list(case),
+    for *case, dtype in CE_EXTRA:
+        _, errs = check_ce(cl, *case, dtype, seed=1)
+        extra.append({"case": [*case, str(dtype)],
                       "max_abs_err": {k: e[0] for k, e in errs.items()},
                       "max_rel_err": {k: e[1] for k, e in errs.items()}})
 
@@ -410,10 +545,10 @@ def loss_and_grads(bp, model, tokens, **options):
                                   for n, p in model.named_parameters()}
 
 
-def run_steps(bp, hvd, flags, counters):
-    """The port's main path for ``flags``: build it, then 3 warm-up and 10
-    timed steps with every launch counter zeroed just before and read just
-    after. Checks that the loss is finite and falls."""
+def run_steps(bp, hvd, flags, counters, layers=LAYERS, warmup=3, timed=10):
+    """The port's main path for ``flags``: build it, then ``warmup`` and
+    ``timed`` steps with every launch counter zeroed just before and read
+    just after. Checks that the loss is finite and falls."""
     args = bp.parse_args(flags)
     model, opt, tokens = bp.build(args)
     options = bp.loss_options(args, hvd.device())
@@ -421,7 +556,7 @@ def run_steps(bp, hvd, flags, counters):
         module.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    for _ in range(3 + 10):
+    for _ in range(warmup + timed):
         t0 = time.perf_counter()
         loss = float(bp.train_step(model, opt, tokens, **options))
         torch.cuda.synchronize()
@@ -435,12 +570,19 @@ def run_steps(bp, hvd, flags, counters):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    if model.cfg.num_layers != LAYERS:
-        raise AssertionError(f"{model.cfg.num_layers} layers, not {LAYERS}")
-    timed = statistics.median(step_ms[3:])
+    if model.cfg.num_layers != layers:
+        raise AssertionError(f"{model.cfg.num_layers} layers, not {layers}")
     return {"args": args, "model": model, "tokens": tokens,
-            "losses": losses, "step_ms": step_ms, "timed": timed,
+            "losses": losses, "step_ms": step_ms,
+            "timed": statistics.median(step_ms[warmup:]),
             "launches": launches, "peak_mem": peak_mem}
+
+
+def flash_per_step(layers):
+    """Launches per step of each flash counter: every forward on the wgmma
+    route, none on the mma.sync route."""
+    return {"flash_fwd": layers, "flash_fwd_wgmma": layers,
+            "flash_fwd_mma": 0, "flash_dq": layers, "flash_dkv": layers}
 
 
 def check_launches(launches, per_step, steps):
@@ -498,7 +640,7 @@ def bert_phase(bp, fa, hvd, peak):
     from horovod_tpu_torch.models import TransformerLM
 
     run = run_steps(bp, hvd, ["--flash"], [fa])
-    check_launches(run["launches"], dict.fromkeys(run["launches"], LAYERS),
+    check_launches(run["launches"], flash_per_step(LAYERS),
                    len(run["losses"]))
     model, tokens = run["model"], run["tokens"]
     loss_k, grads_k = loss_and_grads(bp, model, tokens)
@@ -523,8 +665,7 @@ def bert_fused_loss_phase(bp, fa, cl, hvd, peak, slice1):
     """Phase 6: slice 2's main path (``--flash --fused-loss``), then the
     loss kernels vs the stock loss on the same weights and batch."""
     run = run_steps(bp, hvd, ["--flash", "--fused-loss"], [fa, cl])
-    per_step = {name: 1 if name in cl.LAUNCHES else LAYERS
-                for name in run["launches"]}
+    per_step = {**flash_per_step(LAYERS), **dict.fromkeys(cl.LAUNCHES, 1)}
     check_launches(run["launches"], per_step, len(run["losses"]))
     model, tokens = run["model"], run["tokens"]
     # Peak memory of one forward/backward alone (no optimizer step, no
@@ -559,6 +700,24 @@ def bert_fused_loss_phase(bp, fa, cl, hvd, peak, slice1):
     return run["launches"]
 
 
+LARGE_LAYERS = 2  # BERT-large's depth (24) cut to 2 for the smoke run
+
+
+def bert_large_phase(bp, fa, cl, hvd, peak):
+    """Phase 7: BERT-large widths (hidden 1024, 16 heads, MLP 4096) with
+    ``--flash --fused-loss`` at a cut depth: 3 steps, loss finite and
+    falling, every forward on the wgmma route (head dim 64) and the loss
+    kernels at their hidden-1024 instance."""
+    run = run_steps(bp, hvd, ["--flash", "--fused-loss", "--hidden", "1024",
+                              "--heads", "16", "--layers", str(LARGE_LAYERS)],
+                    [fa, cl], layers=LARGE_LAYERS, warmup=1, timed=2)
+    per_step = {**flash_per_step(LARGE_LAYERS),
+                **dict.fromkeys(cl.LAUNCHES, 1)}
+    check_launches(run["launches"], per_step, len(run["losses"]))
+    emit("bert_large_fused_loss", **run_fields(run, peak, bp),
+         depth_cut={"layers": LARGE_LAYERS, "of": 24})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -581,20 +740,28 @@ def main():
          cuda=torch.version.cuda, peak_assumed=peak._asdict())
 
     t0 = time.perf_counter()
-    # Both sources compile at once, unless already built.
-    _build.load_all(["flash_attention", "chunked_loss"])
+    # The sources compile at once, unless already built.
+    sources = ["flash_attention", "flash_fwd_wgmma", "chunked_loss"]
+    _build.load_all(sources)
     fa._lib()
+    fa._wgmma_lib()
     cl._lib()
     libraries = {}
-    for name in ("flash_attention", "chunked_loss"):
+    for name in sources:
         info = _build.BUILD_INFO[name]
         with open(info["path"][:-3] + ".log") as fh:
-            report = [line.strip() for line in fh
-                      if "Compiling entry" in line or "registers" in line
-                      or "spill" in line]
+            kernels, notes = ptxas_report(fh.read())
         libraries[name] = {"nvcc_seconds": info["seconds"],
-                           "cached": info["cached"], "ptxas": report}
-    emit("build", seconds=time.perf_counter() - t0, libraries=libraries)
+                           "cached": info["cached"], "ptxas": kernels,
+                           "ptxas_notes": notes}
+    serialized = [line for line in libraries["flash_fwd_wgmma"]["ptxas_notes"]
+                  if "serialized" in line]
+    sass = wgmma_sass_counts(_build.BUILD_INFO["flash_fwd_wgmma"]["path"])
+    emit("build", seconds=time.perf_counter() - t0, libraries=libraries,
+         flash_fwd_wgmma_sass=sass)
+    if not (sass["HGMMA"] and sass["UTMALDG"]) or serialized:
+        raise AssertionError(f"the wgmma forward is not what it claims: "
+                             f"{sass}, {serialized}")
 
     rows = kernel_phases(fa, peak)
     rows.update(ce_phases(cl, peak))
@@ -602,8 +769,11 @@ def main():
     launches = dict(slice1["launches"])
     launches.update({n: c for n, c in bert_fused_loss_phase(
         bp, fa, cl, hvd, peak, slice1).items() if n in cl.LAUNCHES})
+    bert_large_phase(bp, fa, cl, hvd, peak)
     for name, row in rows.items():
         row["launches"] = launches[name]
+    rows["flash_fwd"]["launches_by_route"] = {
+        r: launches["flash_fwd_" + r] for r in fa.FWD_ROUTES}
     hvd.shutdown()
     print(json.dumps({"kernels": [rows[n] for n in (*REPLACES, *CE_REPLACES)]}),
           flush=True)

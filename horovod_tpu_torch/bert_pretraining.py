@@ -92,11 +92,20 @@ def make_optimizer(model: torch.nn.Module) -> Optimizer:
         hvd.adamw(1e-4, weight_decay=0.01), fused_update=True), params)
 
 
-def make_tokens(args: argparse.Namespace, device) -> torch.Tensor:
-    """One fixed random batch (batch_size, seq_len) of token ids."""
+def make_tokens(args: argparse.Namespace, device, local_rank: int = 0,
+                local_size: int = 1) -> torch.Tensor:
+    """This rank's fixed random batch (batch_size, seq_len) of token ids.
+
+    As in the JAX example, one (batch_size * local_size, seq_len) array is
+    drawn from ``--seed`` for the host and sharded over its ranks: local
+    rank r trains on rows [r * batch_size, (r + 1) * batch_size), so the
+    data-parallel ranks see different rows."""
     rng = np.random.RandomState(args.seed)
-    tokens = rng.randint(0, args.vocab, size=(args.batch_size, args.seq_len))
-    return torch.from_numpy(tokens.astype(np.int64)).to(device)
+    tokens = rng.randint(0, args.vocab,
+                         size=(args.batch_size * local_size, args.seq_len))
+    rows = tokens[local_rank * args.batch_size:
+                  (local_rank + 1) * args.batch_size]
+    return torch.from_numpy(rows.astype(np.int64)).to(device)
 
 
 def make_generator(args: argparse.Namespace,
@@ -167,7 +176,8 @@ def build(args: argparse.Namespace):
     model = TransformerLM(make_config(args),
                           generator=torch.Generator().manual_seed(args.seed))
     model = model.to(device)
-    return model, make_optimizer(model), make_tokens(args, device)
+    tokens = make_tokens(args, device, hvd.local_rank(), hvd.local_size())
+    return model, make_optimizer(model), tokens
 
 
 def _sync(device) -> None:

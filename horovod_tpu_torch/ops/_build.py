@@ -25,6 +25,10 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# After the source: dlopen/dlsym, with which flash_fwd_wgmma.cu finds
+# cuTensorMapEncodeTiled in the libcuda.so.1 already loaded (no link
+# against it).
+NVCC_LIBS = ["-ldl"]
 
 _lock = threading.Lock()  # guards _locks
 _locks: dict = {}  # name -> lock of that library's build and load
@@ -55,7 +59,7 @@ def library_path(name: str) -> str:
     source and flags."""
     with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as fh:
         digest = hashlib.sha256(fh.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -71,7 +75,7 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(SRC_DIR, name + ".cu")]
+           os.path.join(SRC_DIR, name + ".cu"), *NVCC_LIBS]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

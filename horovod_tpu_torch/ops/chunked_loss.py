@@ -18,10 +18,19 @@ Two versions, with the contract of the JAX package's pair:
   PyTorch, the vocabulary in ``chunk`` columns, a backward that recomputes
   each chunk, so no ``[N, V]`` tensor is ever live. It runs on any device.
 - :func:`fused_softmax_cross_entropy` ports the Pallas version. On CUDA
-  tensors it runs the three kernels of ``csrc/chunked_loss.cu`` (bf16
-  hidden states, hidden size 256, 512 or 768; anything else raises); on CPU
+  tensors it runs the three kernels of ``csrc/chunked_loss.cu``; on CPU
   tensors it runs their plain versions in this module, which are also what
   the kernels are checked against. Nothing on the CUDA path calls them.
+
+**The CUDA path** takes bf16 or float32 hidden states at any hidden size
+that is a multiple of 8 up to 1024. The kernels have instances at 256,
+512, 768 and 1024; :func:`kernel_operands` zero-pads x and the head along
+H to the next instance, which is an exact rewrite (zero columns add
+nothing to x . W), and dx and dW are sliced back. Float32 hidden states
+are rounded to bf16 there, once per call, and so is the head: the
+products take bf16 operands and accumulate in float32, so the precision
+is bf16's; dx comes back in the hidden states' dtype, as in the JAX
+package. H above 1024 or not a multiple of 8 raises.
 
 **Weight layout.** The head is torch's ``lm_head.weight`` of shape (V, H),
 the transpose of JAX's (H, V) ``kernel`` (``convert.py`` transposes it).
@@ -47,15 +56,24 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 DEFAULT_CHUNK = 2048
-SUPPORTED_HIDDEN = (256, 512, 768)
+#: Hidden sizes with a kernel instance; others are padded up to one of these.
+SUPPORTED_HIDDEN = (256, 512, 768, 1024)
+#: Hidden-state dtypes of the CUDA path (float32 is rounded to bf16).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Launches of each CUDA kernel, incremented where the wrapper launches it.
 LAUNCHES = {"ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
 
-_FWD_ROWS = 64  # token rows of a forward CTA (csrc/chunked_loss.cu kFwdRows)
-_TILE = 32      # vocabulary rows of a streamed tile (kBS)
+_TILE = 32  # vocabulary rows of a streamed tile (csrc/chunked_loss.cu kBS)
+
+
+def fwd_rows(h: int) -> int:
+    """Token rows of a forward CTA at hidden size ``h``
+    (``csrc/chunked_loss.cu`` fwd_rows)."""
+    return 32 if h > 768 else 64
 
 
 def reset_launch_counts() -> None:
@@ -144,10 +162,48 @@ def _lib():
     return _LIB
 
 
+def kernel_hidden(h: int) -> int:
+    """The hidden size of the kernel instance that takes hidden size ``h``:
+    the smallest of :data:`SUPPORTED_HIDDEN` that holds it. Raises
+    ValueError where the CUDA path stops: ``h`` not a multiple of 8, or
+    above 1024."""
+    if h <= 0 or h % 8 or h > SUPPORTED_HIDDEN[-1]:
+        raise ValueError(
+            f"hidden size {h} has no CUDA kernel: the kernels take hidden "
+            f"sizes that are multiples of 8 up to {SUPPORTED_HIDDEN[-1]}")
+    return next(k for k in SUPPORTED_HIDDEN if k >= h)
+
+
+def pad_hidden(t, hp):
+    """``t`` zero-padded along its last (hidden) dim to ``hp``; ``t`` itself
+    when it has that width. Zero columns of x and W add nothing to x . W^T,
+    so the loss, dx[:, :H] and dW[:, :H] of padded operands are those of
+    the originals."""
+    h = t.shape[-1]
+    return t if h == hp else F.pad(t, (0, hp - h))
+
+
+def kernel_operands(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (N, H) and the head W (V, H) as the kernels take them: bf16,
+    zero-padded along H to :func:`kernel_hidden`. A copy only where a cast
+    or a pad is needed. Checks metadata only."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"fused_softmax_cross_entropy: the CUDA kernels "
+                        f"take bfloat16 or float32 hidden states, got "
+                        f"{x.dtype}")
+    if not w.dtype.is_floating_point:
+        raise TypeError(f"fused_softmax_cross_entropy: the head must be "
+                        f"floating point, got {w.dtype}")
+    hp = kernel_hidden(x.shape[-1])
+    return (pad_hidden(x.to(torch.bfloat16), hp).contiguous(),
+            pad_hidden(w.to(torch.bfloat16), hp).contiguous())
+
+
 def check_kernel_inputs(name, x, w, b, labels, lse=None, g=None
                         ) -> Tuple[int, int, int]:
-    """Validate what the kernels take; returns (N, H, V). Runs on tensor
-    metadata only, so it is testable without a GPU."""
+    """Validate what reaches the kernels, after :func:`kernel_operands`;
+    returns (N, H, V). Runs on tensor metadata only, so it is testable
+    without a GPU."""
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{name}: expected x (N, H) and W (V, H), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -191,11 +247,13 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def vocab_splits(n: int, v: int, sms: int) -> Tuple[int, int]:
-    """``(splits, tiles_per_split)`` of the forward's vocabulary: the split
-    count in 1..16 that wastes least of the last wave of CTAs (time ~
-    waves / splits), the smallest on ties."""
-    row_tiles = -(-n // _FWD_ROWS)
+def vocab_splits(n: int, v: int, sms: int, rows: int = 64
+                 ) -> Tuple[int, int]:
+    """``(splits, tiles_per_split)`` of the forward's vocabulary for ``n``
+    tokens in CTAs of ``rows``: the split count in 1..16 that wastes least
+    of the last wave of CTAs (time ~ waves / splits), the smallest on
+    ties."""
+    row_tiles = -(-n // rows)
     tiles = -(-v // _TILE)
     best = min(range(1, min(16, tiles) + 1),
                key=lambda s: (-(-row_tiles * s // sms) / s, s))
@@ -206,7 +264,7 @@ def vocab_splits(n: int, v: int, sms: int) -> Tuple[int, int]:
 def _launch_fwd(x, w, b, labels):
     n, h, v = check_kernel_inputs("ce_fwd", x, w, b, labels)
     lib = _lib()
-    splits, per = vocab_splits(n, v, _sm_count(x.device.index))
+    splits, per = vocab_splits(n, v, _sm_count(x.device.index), fwd_rows(h))
     parts = torch.empty((3, splits, n), dtype=torch.float32, device=x.device)
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
     loss = torch.empty_like(lse)
@@ -287,12 +345,17 @@ def ce_dw(x, w, b, labels, lse, g):
 class _Fused(torch.autograd.Function):
     """Per-token losses through the three kernels. The head is cast to the
     compute dtype once per call (47 MB in bf16 for BERT-base) and that copy
-    is saved for the backward, with x, the labels and lse."""
+    is saved for the backward, with x, the labels and lse. On CUDA the
+    compute dtype is bf16 and x and the head are padded to the kernels'
+    hidden size (:func:`kernel_operands`); dx and dW are sliced back."""
 
     @staticmethod
     def forward(ctx, hidden, weight, bias, labels):
         x = hidden.reshape(-1, hidden.shape[-1]).contiguous()
-        w = weight.to(hidden.dtype).contiguous()
+        if x.is_cuda:
+            x, w = kernel_operands(x, weight)
+        else:
+            w = weight.to(hidden.dtype).contiguous()
         b = bias.float().contiguous()
         lab = labels.reshape(-1).to(torch.int64).contiguous()
         loss, lse = ce_fwd(x, w, b, lab)
@@ -306,13 +369,19 @@ class _Fused(torch.autograd.Function):
         x, w, b, lab, lse = ctx.saved_tensors
         g = g.reshape(-1).float().contiguous()
         dx = dw = db = None
+        h = ctx.hidden_shape[-1]
         if ctx.needs_input_grad[0]:
-            dx = ce_dx(x, w, b, lab, lse, g).to(ctx.dtypes[0])
+            dx = _unpad(ce_dx(x, w, b, lab, lse, g), h).to(ctx.dtypes[0])
             dx = dx.view(ctx.hidden_shape)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = ce_dw(x, w, b, lab, lse, g)
-            dw, db = dw.to(ctx.dtypes[1]), db.to(ctx.dtypes[2])
+            dw, db = _unpad(dw, h).to(ctx.dtypes[1]), db.to(ctx.dtypes[2])
         return dx, dw, db, None
+
+
+def _unpad(t, h):
+    """The first ``h`` columns of a kernel output."""
+    return t if t.shape[-1] == h else t[:, :h].contiguous()
 
 
 def fused_softmax_cross_entropy(hidden, weight, bias, labels,
@@ -320,7 +389,8 @@ def fused_softmax_cross_entropy(hidden, weight, bias, labels,
     """Per-token losses ``logsumexp(h W^T + b) - (h W^T + b)[label]``, in
     float32 with the leading shape of ``hidden``.
 
-    hidden: (..., H) in the compute dtype (bf16 for the CUDA kernels);
+    hidden: (..., H) in the compute dtype (bf16 or float32 on CUDA, where
+    H is a multiple of 8 up to 1024);
     weight: (V, H), torch's ``lm_head.weight`` (the transpose of JAX's
     kernel); bias: (V,); labels: (...) integers in ``[0, V)``. dx comes
     back in ``hidden``'s dtype, dW and db in the parameters'. ``block_n``

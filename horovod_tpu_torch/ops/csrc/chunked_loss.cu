@@ -66,9 +66,21 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBS = 32;        // streamed rows per tile
-constexpr int kFwdRows = 64;   // resident rows, forward: 4 row x 2 column warps
-constexpr int kBwdRows = 32;   // resident rows, dx/dW: 2 row x 4 column warps
 constexpr float kNegInf = -1e30f;
+
+// Resident rows of a CTA. Forward: 64 (4 row x 2 column warps), 32 at
+// H = 1024, where 64 resident and two streamed tiles would exceed the 227 KB
+// of shared memory. dx/dW: 32 (2 row x 4 column warps); at H = 1024, 16 (the
+// 8 warps split the 1024 output columns, 64 accumulators per thread; 4 of
+// them compute each 16 x 32 score tile).
+template <int H>
+__host__ __device__ constexpr int fwd_rows() {
+  return H > 768 ? 32 : 64;
+}
+template <int H>
+__host__ __device__ constexpr int bwd_rows() {
+  return H > 768 ? 16 : 32;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,17 +215,19 @@ __device__ __forceinline__ void score_tile(float (&c)[NT][4], const bf16* sR,
 
 template <int H>
 constexpr size_t fwd_smem_bytes() {
-  return static_cast<size_t>(kFwdRows + 2 * kBS) * (H + 8) * sizeof(bf16);
+  return static_cast<size_t>(fwd_rows<H>() + 2 * kBS) * (H + 8) * sizeof(bf16);
 }
 
 template <int H>
 constexpr size_t bwd_smem_bytes() {
-  return static_cast<size_t>(kBwdRows + 2 * kBS) * (H + 8) * sizeof(bf16) +
-         kBwdRows * (kBS + 8) * sizeof(bf16) + 4 * kBwdRows * sizeof(float);
+  return static_cast<size_t>(bwd_rows<H>() + 2 * kBS) * (H + 8) *
+             sizeof(bf16) +
+         bwd_rows<H>() * (kBS + 8) * sizeof(bf16) +
+         4 * bwd_rows<H>() * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
-// Forward: grid (token tiles of 64, vocabulary splits). Writes each split's
+// Forward: grid (token tiles of fwd_rows<H>(), vocabulary splits). Writes each split's
 // per-row (max, sum of exp, label logit) to PM/PL/PLBL[split][row].
 // ---------------------------------------------------------------------------
 template <int H>
@@ -222,7 +236,7 @@ ce_fwd_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W,
               const float* __restrict__ B, const int64_t* __restrict__ L,
               float* __restrict__ PM, float* __restrict__ PL,
               float* __restrict__ PLBL, int n, int v, int tiles_per_split) {
-  constexpr int BR = kFwdRows;
+  constexpr int BR = fwd_rows<H>();
   constexpr int RG = BR / 16;          // row groups of warps
   constexpr int CG = 8 / RG;           // column groups of warps
   constexpr int NT = kBS / (8 * CG);   // n-tiles of a warp's score slice
@@ -362,7 +376,7 @@ __global__ void ce_fwd_combine_kernel(const float* __restrict__ PM,
 // ---------------------------------------------------------------------------
 // Backward body shared by dx (resident tokens, streamed vocabulary) and
 // dW/db (resident vocabulary rows, streamed tokens). Grid: resident tiles
-// of 32 rows; each CTA loops over every streamed tile.
+// of bwd_rows<H>() rows; each CTA loops over every streamed tile.
 // ---------------------------------------------------------------------------
 template <int H, bool kDW>
 __device__ __forceinline__ void ce_bwd_body(
@@ -371,10 +385,13 @@ __device__ __forceinline__ void ce_bwd_body(
     const float* __restrict__ LSE, const float* __restrict__ G,
     void* __restrict__ OUT, float* __restrict__ DB, int n, int v,
     unsigned char* smem) {
-  constexpr int BR = kBwdRows;
-  constexpr int RG = BR / 16;         // 2 row groups of warps
-  constexpr int CG = 8 / RG;          // 4 column groups of warps
-  constexpr int NT = kBS / (8 * CG);  // 1 n-tile of scores per warp
+  constexpr int BR = bwd_rows<H>();
+  constexpr int RG = BR / 16;         // row groups of warps
+  constexpr int CG = 8 / RG;          // column groups of warps
+  // Column groups that compute the scores: at most one n-tile of 8
+  // streamed rows each.
+  constexpr int SCG = CG < kBS / 8 ? CG : kBS / 8;
+  constexpr int NT = kBS / (8 * SCG);  // n-tiles of scores per scoring warp
   constexpr int LD = H + 8;
   constexpr int LDD = kBS + 8;
   constexpr int HW = H / CG;   // output columns of a warp
@@ -428,46 +445,48 @@ __device__ __forceinline__ void ce_bwd_body(
                         tid);
       cp_async_commit();
     }
-    float c[NT][4];
-    score_tile<H, NT>(c, sR, sSb, rg * 16, cg * NT * 8, lane);
+    if (cg < SCG) {
+      float c[NT][4];
+      score_tile<H, NT>(c, sR, sSb, rg * 16, cg * NT * 8, lane);
 
-    const int col0 = st * kBS + cg * NT * 8 + 2 * t;
+      const int col0 = st * kBS + cg * NT * 8 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + j * 8 + (e & 1);
-        const int r = e >> 1;
-        const int token = kDW ? col : rrow[r];
-        const int vocab = kDW ? rrow[r] : col;
-        float d = 0.f;
-        if (token < n && vocab < v) {
-          float lse, gg, bias;
-          int64_t lab;
-          if (kDW) {
-            lse = __ldg(LSE + col);
-            gg = __ldg(G + col);
-            lab = L[col];
-            bias = bias_r[r];
-          } else {
-            lse = lse_r[r];
-            gg = g_r[r];
-            lab = lab_r[r];
-            bias = __ldg(B + col);
+        for (int e = 0; e < 4; ++e) {
+          const int col = col0 + j * 8 + (e & 1);
+          const int r = e >> 1;
+          const int token = kDW ? col : rrow[r];
+          const int vocab = kDW ? rrow[r] : col;
+          float d = 0.f;
+          if (token < n && vocab < v) {
+            float lse, gg, bias;
+            int64_t lab;
+            if (kDW) {
+              lse = __ldg(LSE + col);
+              gg = __ldg(G + col);
+              lab = L[col];
+              bias = bias_r[r];
+            } else {
+              lse = lse_r[r];
+              gg = g_r[r];
+              lab = lab_r[r];
+              bias = __ldg(B + col);
+            }
+            const float p = __expf(c[j][e] + bias - lse);
+            d = (p - (lab == vocab ? 1.f : 0.f)) * gg;
           }
-          const float p = __expf(c[j][e] + bias - lse);
-          d = (p - (lab == vocab ? 1.f : 0.f)) * gg;
+          c[j][e] = d;
+          if (kDW) dbacc[r] += d;
         }
-        c[j][e] = d;
-        if (kDW) dbacc[r] += d;
       }
-    }
-    // bf16(dlog) (rows resident, columns streamed): the A operand below.
+      // bf16(dlog) (rows resident, columns streamed): the A operand below.
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      bf16* p = sD + (rg * 16 + g) * LDD + cg * NT * 8 + j * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(p) = pack_bf16(c[j][0], c[j][1]);
-      *reinterpret_cast<uint32_t*>(p + 8 * LDD) = pack_bf16(c[j][2], c[j][3]);
+      for (int j = 0; j < NT; ++j) {
+        bf16* p = sD + (rg * 16 + g) * LDD + cg * NT * 8 + j * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(c[j][0], c[j][1]);
+        *reinterpret_cast<uint32_t*>(p + 8 * LDD) = pack_bf16(c[j][2], c[j][3]);
+      }
     }
     __syncthreads();
     // acc += dlog[this warp's 16 rows, 0:kBS] . S[0:kBS, its HW columns]
@@ -508,13 +527,13 @@ __device__ __forceinline__ void ce_bwd_body(
     for (int r = 0; r < 2; ++r) {
       dbacc[r] += __shfl_xor_sync(0xffffffffu, dbacc[r], 1);
       dbacc[r] += __shfl_xor_sync(0xffffffffu, dbacc[r], 2);
-      if (t == 0) sDB[cg * BR + rg * 16 + g + 8 * r] = dbacc[r];
+      if (t == 0 && cg < SCG) sDB[cg * BR + rg * 16 + g + 8 * r] = dbacc[r];
     }
     __syncthreads();
     if (tid < BR && r0 + tid < v) {
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < CG; ++c) sum += sDB[c * BR + tid];
+      for (int c = 0; c < SCG; ++c) sum += sDB[c * BR + tid];
       DB[r0 + tid] = sum;
     }
   }
@@ -554,7 +573,7 @@ int launch_fwd(const void* x, const void* w, const void* b, const void* lab,
   const size_t smem = fwd_smem_bytes<H>();
   cudaError_t err = allow_smem(ce_fwd_kernel<H>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kFwdRows - 1) / kFwdRows, nsplit);
+  const dim3 grid((n + fwd_rows<H>() - 1) / fwd_rows<H>(), nsplit);
   ce_fwd_kernel<H><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const int64_t*>(lab),
@@ -576,7 +595,8 @@ int launch_dx(const void* x, const void* w, const void* b, const void* lab,
   const size_t smem = bwd_smem_bytes<H>();
   cudaError_t err = allow_smem(ce_dx_kernel<H>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_dx_kernel<H><<<(n + kBwdRows - 1) / kBwdRows, kThreads, smem, stream>>>(
+  constexpr int rows = bwd_rows<H>();
+  ce_dx_kernel<H><<<(n + rows - 1) / rows, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const int64_t*>(lab),
       static_cast<const float*>(lse), static_cast<const float*>(g),
@@ -591,7 +611,8 @@ int launch_dw(const void* x, const void* w, const void* b, const void* lab,
   const size_t smem = bwd_smem_bytes<H>();
   cudaError_t err = allow_smem(ce_dw_kernel<H>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_dw_kernel<H><<<(v + kBwdRows - 1) / kBwdRows, kThreads, smem, stream>>>(
+  constexpr int rows = bwd_rows<H>();
+  ce_dw_kernel<H><<<(v + rows - 1) / rows, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const int64_t*>(lab),
       static_cast<const float*>(lse), static_cast<const float*>(g),
@@ -617,6 +638,9 @@ int hvd_ce_fwd(const void* x, const void* w, const void* b, const void* lab,
     case 768:
       return launch_fwd<768>(x, w, b, lab, pm, pl, plbl, lse, loss, n, v,
                              nsplit, tiles_per_split, st);
+    case 1024:
+      return launch_fwd<1024>(x, w, b, lab, pm, pl, plbl, lse, loss, n, v,
+                              nsplit, tiles_per_split, st);
     default: return -1;
   }
 }
@@ -629,6 +653,7 @@ int hvd_ce_dx(const void* x, const void* w, const void* b, const void* lab,
     case 256: return launch_dx<256>(x, w, b, lab, lse, g, dx, n, v, st);
     case 512: return launch_dx<512>(x, w, b, lab, lse, g, dx, n, v, st);
     case 768: return launch_dx<768>(x, w, b, lab, lse, g, dx, n, v, st);
+    case 1024: return launch_dx<1024>(x, w, b, lab, lse, g, dx, n, v, st);
     default: return -1;
   }
 }
@@ -641,6 +666,8 @@ int hvd_ce_dw(const void* x, const void* w, const void* b, const void* lab,
     case 256: return launch_dw<256>(x, w, b, lab, lse, g, dw, db, n, v, st);
     case 512: return launch_dw<512>(x, w, b, lab, lse, g, dw, db, n, v, st);
     case 768: return launch_dw<768>(x, w, b, lab, lse, g, dw, db, n, v, st);
+    case 1024:
+      return launch_dw<1024>(x, w, b, lab, lse, g, dw, db, n, v, st);
     default: return -1;
   }
 }

@@ -36,6 +36,17 @@
 // and uses mma.sync, not wgmma; it relies on several resident CTAs per SM
 // to hide load latency.
 //
+// Instances: head dims 32, 64 and 128 (the wrapper zero-pads other head
+// dims up to the next one and rounds float32 inputs to bf16). At d = 128
+// the tiles take more than the 48 KB of static shared memory, so every
+// kernel takes its tiles as dynamic shared memory; dQ and dK/dV read the
+// resident tile's A fragments from shared memory at each use instead of
+// holding them in registers, and dK/dV splits its output columns over
+// blockIdx.z (64 each, the score products recomputed per half) so that its
+// accumulators stay at the d = 64 count. This file's forward is the route
+// for float32 inputs and head dim 32; bf16 at head dims 64 and 128 takes
+// the wgmma forward of flash_fwd_wgmma.cu.
+//
 // Plain C interface for ctypes: every entry point launches on the given
 // stream and returns the cudaError_t of the launch (or -1 for a head
 // dimension without an instance).
@@ -145,6 +156,38 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
+// A fragment of k-step kk of a resident tile: from registers where the
+// kernel holds them (HOLD), else loaded from the tile in shared memory.
+template <int LD, bool HOLD, int N>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
+                                       const uint32_t (&held)[N][4],
+                                       const bf16* s, int r0, int kk, int g,
+                                       int t) {
+  if constexpr (HOLD) {
+    a[0] = held[kk][0];
+    a[1] = held[kk][1];
+    a[2] = held[kk][2];
+    a[3] = held[kk][3];
+  } else {
+    load_a<LD>(a, s, r0, kk * 16, g, t);
+  }
+}
+
+// Dynamic shared memory of each kernel: its bf16 tiles at pitch D + 8
+// (and the dK/dV kernel's row statistics).
+template <int D>
+constexpr int fwd_smem_bytes() {
+  return (kBlockM + 2 * kBlockN) * (D + 8) * 2;
+}
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * kBlockM + 2 * kBlockN) * (D + 8) * 2;
+}
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return (2 * kBlockM + 2 * kBlockN) * (D + 8) * 2 + 2 * kBlockM * 4;
+}
+
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 #pragma unroll
@@ -171,9 +214,10 @@ flash_fwd_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   constexpr int ND = D / 8;         // n-tiles over the head dim
   constexpr int NN = kBlockN / 8;   // n-tiles over a key tile
   constexpr int KN = kBlockN / 16;  // k-steps over a key tile
-  __shared__ __align__(16) bf16 sQ[kBlockM * LD];
-  __shared__ __align__(16) bf16 sK[kBlockN * LD];
-  __shared__ __align__(16) bf16 sV[kBlockN * LD];
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kBlockM * LD;
+  bf16* sV = sK + kBlockN * LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -300,10 +344,12 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   constexpr int ND = D / 8;
   constexpr int NN = kBlockN / 8;
   constexpr int KN = kBlockN / 16;
-  __shared__ __align__(16) bf16 sQ[kBlockM * LD];
-  __shared__ __align__(16) bf16 sdO[kBlockM * LD];
-  __shared__ __align__(16) bf16 sK[kBlockN * LD];
-  __shared__ __align__(16) bf16 sV[kBlockN * LD];
+  constexpr bool kHold = D <= 64;  // Q and dO fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + kBlockM * LD;
+  bf16* sK = sdO + kBlockM * LD;
+  bf16* sV = sK + kBlockN * LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -315,11 +361,13 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   load_tile<D, kBlockM>(sQ, Q + base, q0, s, tid);
   load_tile<D, kBlockM>(sdO, dO + base, q0, s, tid);
   __syncthreads();
-  uint32_t qa[KD][4], da[KD][4];
+  uint32_t qa[kHold ? KD : 1][4], da[kHold ? KD : 1][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a<LD>(qa[kk], sQ, warp * 16, kk * 16, g, t);
-    load_a<LD>(da[kk], sdO, warp * 16, kk * 16, g, t);
+    for (int kk = 0; kk < KD; ++kk) {
+      load_a<LD>(qa[kk], sQ, warp * 16, kk * 16, g, t);
+      load_a<LD>(da[kk], sdO, warp * 16, kk * 16, g, t);
+    }
   }
   float lse[2], delta[2];
 #pragma unroll
@@ -343,14 +391,17 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     zero(sc);
     zero(dp);
 #pragma unroll
-    for (int j = 0; j < NN; ++j) {
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ad[4];
+      a_frag<LD, kHold>(aq, qa, sQ, warp * 16, kk, g, t);
+      a_frag<LD, kHold>(ad, da, sdO, warp * 16, kk, g, t);
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+      for (int j = 0; j < NN; ++j) {
         uint32_t b0, b1;
         load_bt<LD>(b0, b1, sK, j * 8, kk * 16, g, t);
-        mma16816(sc[j], qa[kk], b0, b1);
+        mma16816(sc[j], aq, b0, b1);
         load_bt<LD>(b0, b1, sV, j * 8, kk * 16, g, t);
-        mma16816(dp[j], da[kk], b0, b1);
+        mma16816(dp[j], ad, b0, b1);
       }
     }
 #pragma unroll
@@ -393,7 +444,8 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: grid (key tiles, b*h); loops over query tiles.
+// dK/dV: grid (key tiles, b*h, D / DO); loops over query tiles. A CTA owns
+// the output columns [blockIdx.z * DO, + DO) of its 64 keys.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -404,19 +456,23 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                  int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
+  constexpr int DO = D > 64 ? 64 : D;  // output columns of a CTA
+  constexpr int NO = DO / 8;
   constexpr int NM = kBlockM / 8;   // n-tiles over a query tile
   constexpr int KM = kBlockM / 16;  // k-steps over a query tile
-  __shared__ __align__(16) bf16 sK[kBlockN * LD];
-  __shared__ __align__(16) bf16 sV[kBlockN * LD];
-  __shared__ __align__(16) bf16 sQ[kBlockM * LD];
-  __shared__ __align__(16) bf16 sdO[kBlockM * LD];
-  __shared__ float sL[kBlockM];
-  __shared__ float sD[kBlockM];
+  constexpr bool kHold = D <= 64;   // K and V fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kBlockN * LD;
+  bf16* sQ = sV + kBlockN * LD;
+  bf16* sdO = sQ + kBlockM * LD;
+  float* sL = reinterpret_cast<float*>(sdO + kBlockM * LD);
+  float* sD = sL + kBlockM;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * kBlockN;
+  const int c0 = blockIdx.z * DO;
   const size_t base = (size_t)blockIdx.y * s * D;
   const size_t row_base = (size_t)blockIdx.y * s;
   const int krow0 = k0 + warp * 16 + g;  // this lane's keys: krow0, krow0 + 8
@@ -424,14 +480,16 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   load_tile<D, kBlockN>(sK, K + base, k0, s, tid);
   load_tile<D, kBlockN>(sV, V + base, k0, s, tid);
   __syncthreads();
-  uint32_t ka[KD][4], va[KD][4];
+  uint32_t ka[kHold ? KD : 1][4], va[kHold ? KD : 1][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a<LD>(ka[kk], sK, warp * 16, kk * 16, g, t);
-    load_a<LD>(va[kk], sV, warp * 16, kk * 16, g, t);
+    for (int kk = 0; kk < KD; ++kk) {
+      load_a<LD>(ka[kk], sK, warp * 16, kk * 16, g, t);
+      load_a<LD>(va[kk], sV, warp * 16, kk * 16, g, t);
+    }
   }
 
-  float dk[ND][4], dv[ND][4];
+  float dk[NO][4], dv[NO][4];
   zero(dk);
   zero(dv);
   const int nq = (s + kBlockM - 1) / kBlockM;
@@ -448,16 +506,23 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     }
     __syncthreads();
 
-    // P^T tile: rows are this warp's 16 keys, columns the 64 queries.
-    float st[NM][4];
+    // P^T tile: rows are this warp's 16 keys, columns the 64 queries; and
+    // V dO^T for dS^T, both over the full head dim.
+    float st[NM][4], ds[NM][4];
     zero(st);
+    zero(ds);
 #pragma unroll
-    for (int j = 0; j < NM; ++j) {
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ak[4], av[4];
+      a_frag<LD, kHold>(ak, ka, sK, warp * 16, kk, g, t);
+      a_frag<LD, kHold>(av, va, sV, warp * 16, kk, g, t);
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+      for (int j = 0; j < NM; ++j) {
         uint32_t b0, b1;
         load_bt<LD>(b0, b1, sQ, j * 8, kk * 16, g, t);
-        mma16816(st[j], ka[kk], b0, b1);
+        mma16816(st[j], ak, b0, b1);
+        load_bt<LD>(b0, b1, sdO, j * 8, kk * 16, g, t);
+        mma16816(ds[j], av, b0, b1);
       }
     }
 #pragma unroll
@@ -471,50 +536,22 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
           p = __expf(st[j][e] * scale - sL[qi]);
         }
         st[j][e] = p;
+        ds[j][e] = p * (ds[j][e] - sD[qi]);  // dS^T = P^T * (V dO^T - delta)
       }
     }
-    // dV += P^T dO
+    // dV += P^T dO and dK += dS^T Q, over this CTA's output columns.
 #pragma unroll
     for (int kk = 0; kk < KM; ++kk) {
-      uint32_t a[4];
-      c_to_a<NM>(a, st, kk);
+      uint32_t ap[4], as[4];
+      c_to_a<NM>(ap, st, kk);
+      c_to_a<NM>(as, ds, kk);
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
+      for (int j = 0; j < NO; ++j) {
         uint32_t b0, b1;
-        load_b<LD>(b0, b1, sdO, kk * 16, j * 8, g, t);
-        mma16816(dv[j], a, b0, b1);
-      }
-    }
-    // dS^T = P^T * (V dO^T - delta)
-    float ds[NM][4];
-    zero(ds);
-#pragma unroll
-    for (int j = 0; j < NM; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b0, b1;
-        load_bt<LD>(b0, b1, sdO, j * 8, kk * 16, g, t);
-        mma16816(ds[j], va[kk], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NM; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);
-        ds[j][e] = st[j][e] * (ds[j][e] - sD[qi]);
-      }
-    }
-    // dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < KM; ++kk) {
-      uint32_t a[4];
-      c_to_a<NM>(a, ds, kk);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t b0, b1;
-        load_b<LD>(b0, b1, sQ, kk * 16, j * 8, g, t);
-        mma16816(dk[j], a, b0, b1);
+        load_b<LD>(b0, b1, sdO, kk * 16, c0 + j * 8, g, t);
+        mma16816(dv[j], ap, b0, b1);
+        load_b<LD>(b0, b1, sQ, kk * 16, c0 + j * 8, g, t);
+        mma16816(dk[j], as, b0, b1);
       }
     }
   }
@@ -523,10 +560,10 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   for (int r = 0; r < 2; ++r) {
     const int key = krow0 + r * 8;
     if (key >= s) continue;
-    bf16* outk = dK + base + (size_t)key * D + 2 * t;
-    bf16* outv = dV + base + (size_t)key * D + 2 * t;
+    bf16* outk = dK + base + (size_t)key * D + c0 + 2 * t;
+    bf16* outv = dV + base + (size_t)key * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
+    for (int j = 0; j < NO; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(outk + j * 8) = __floats2bfloat162_rn(
           dk[j][2 * r] * scale, dk[j][2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(outv + j * 8) =
@@ -535,11 +572,22 @@ flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   }
 }
 
+// Allows a kernel its dynamic shared memory (above 48 KB only by opt-in).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int bh, int s, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), s, causal, scale);
@@ -550,8 +598,11 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int s,
               int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = dq_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kBlockM - 1) / kBlockM, bh);
-  flash_dq_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -563,8 +614,11 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int s, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((s + kBlockN - 1) / kBlockN, bh);
-  flash_dkv_kernel<D><<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = dkv_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + kBlockN - 1) / kBlockN, bh, D > 64 ? D / 64 : 1);
+  flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -583,6 +637,8 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 32: return launch_fwd<32>(q, k, v, o, lse, bh, s, causal, scale, st);
     case 64: return launch_fwd<64>(q, k, v, o, lse, bh, s, causal, scale, st);
+    case 128:
+      return launch_fwd<128>(q, k, v, o, lse, bh, s, causal, scale, st);
     default: return -1;
   }
 }
@@ -598,6 +654,9 @@ int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal,
                            scale, st);
+    case 128:
+      return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal,
+                            scale, st);
     default: return -1;
   }
 }
@@ -614,6 +673,9 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v,
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal,
                             scale, st);
+    case 128:
+      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s,
+                             causal, scale, st);
     default: return -1;
   }
 }

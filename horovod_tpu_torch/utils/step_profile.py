@@ -29,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from horovod_tpu_torch import bert_pretraining as bp
 
 _CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),
     ("ce_fwd", ("ce_fwd_kernel", "ce_fwd_combine_kernel")),

@@ -14,8 +14,12 @@ rtol 1e-5 / atol 1e-6, float32 gradients at rtol 2e-4 / atol 1e-6 (the
 frameworks differ only in the order of their float32 sums). With bf16
 hidden states the losses keep rtol 1e-5 (both sides accumulate the same
 bf16 products in float32) and dx, which comes back in bf16, is held to one
-bf16 ulp (rtol 2**-7). The CUDA kernels themselves are checked against the
-same plain versions on the GPU by ``chip_smoke.py``.
+bf16 ulp (rtol 2**-7). The hidden-size padding of the CUDA path (to 256,
+512, 768 or 1024) is checked the same way in
+``test_torch_kernel_padding.py``, and which inputs the CUDA path takes on
+tensor metadata here and in ``test_torch_chunked_loss_routes.py``. The
+CUDA kernels themselves are checked against the same plain versions on
+the GPU by ``chip_smoke.py``.
 """
 
 import functools
@@ -192,10 +196,15 @@ def _misaligned(n, h):
 
 
 BAD_INPUTS = {
-    "hidden_48": (ValueError, dict(x=torch.zeros(8, 48, dtype=torch.bfloat16),
-                                   w=torch.zeros(70, 48,
-                                                 dtype=torch.bfloat16))),
-    "x_float32": (TypeError, dict(x=torch.zeros(8, 256))),
+    # Hidden sizes reach the kernels padded to an instance (kernel_operands);
+    # above 1024 none takes them.
+    "hidden_48": (ValueError, dict(
+        x=torch.zeros(8, 1032, dtype=torch.bfloat16),
+        w=torch.zeros(70, 1032, dtype=torch.bfloat16))),
+    # Float32 hidden states reach the kernels rounded to bf16; float16 has
+    # no route.
+    "x_float32": (TypeError, dict(x=torch.zeros(8, 256,
+                                                dtype=torch.float16))),
     "w_float32": (TypeError, dict(w=torch.zeros(70, 256))),
     "bias_bf16": (TypeError, dict(b=torch.zeros(70, dtype=torch.bfloat16))),
     "labels_int32": (TypeError, dict(labels=torch.zeros(8,
@@ -209,6 +218,13 @@ BAD_INPUTS = {
     "x_3d": (ValueError, dict(x=torch.zeros(2, 4, 256,
                                             dtype=torch.bfloat16))),
 }
+
+
+@pytest.mark.parametrize("h", [256, 512, 768, 1024])
+def test_kernel_input_checks_accept_instances(h):
+    t = _good(h=h)
+    assert tcl.check_kernel_inputs("ce_fwd", t["x"], t["w"], t["b"],
+                                   t["labels"]) == (8, h, 70)
 
 
 def test_kernel_input_checks_accept_good_inputs():

@@ -4,8 +4,11 @@ The port's CPU path (the plain PyTorch versions of its CUDA kernels) runs
 on the same seeded inputs as the Pallas kernels in interpret mode, in
 float32: output, row log-sum-exp, and dq/dk/dv through ``jax.vjp``.
 Tolerance: atol = rtol = 1e-5 (float32, the two differ only in the order
-of their sums). The CUDA kernels themselves are checked against the same
-plain versions on the GPU by ``chip_smoke.py``.
+of their sums). The head-dim padding of the CUDA path (8 -> 32, 48 -> 64,
+96 -> 128) is checked the same way in ``test_torch_kernel_padding.py``,
+and which inputs reach which kernel route on tensor metadata in
+``test_torch_flash_routes.py``. The CUDA kernels themselves are checked
+against the same plain versions on the GPU by ``chip_smoke.py``.
 """
 
 import jax
@@ -106,13 +109,14 @@ def test_bias_and_block_errors_match_jax():
 
 def test_kernel_input_checks():
     """What the CUDA wrappers refuse is decided in Python, before any
-    launch, so it is checked here on CPU tensors."""
+    launch, so it is checked here on CPU tensors. ``_check`` sees what
+    reaches the kernels, after the cast to bf16 and the padding."""
     ok = torch.zeros(4, 64, 64, dtype=torch.bfloat16)
     assert tfa._check("t", bf16=(ok, ok)) == (4, 64, 64)
     with pytest.raises(TypeError, match="bfloat16"):
-        tfa._check("t", bf16=(ok.float(),))
+        tfa._check("t", bf16=(ok.half(),))
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._check("t", bf16=(torch.zeros(4, 64, 128, dtype=torch.bfloat16),))
+        tfa._check("t", bf16=(torch.zeros(4, 64, 136, dtype=torch.bfloat16),))
     with pytest.raises(ValueError, match="shape"):
         tfa._check("t", bf16=(ok, torch.zeros(4, 32, 64,
                                               dtype=torch.bfloat16)))
@@ -131,4 +135,5 @@ def test_cpu_path_launches_no_kernel():
     delta = tfa.attention_delta(do, o)
     tfa.flash_dq(q, k, v, lse, delta, do)
     tfa.flash_dkv(q, k, v, lse, delta, do)
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_wgmma": 0,
+                            "flash_fwd_mma": 0, "flash_dq": 0, "flash_dkv": 0}

@@ -24,7 +24,11 @@ bound is checked.
 import argparse
 import ast
 import dataclasses
+import json
 import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +37,8 @@ import optax
 import pytest
 import torch
 
+import horovod_tpu as jhvd
+import horovod_tpu.jax as hvd_jax
 import horovod_tpu_torch as hvd
 from horovod_tpu.jax.fused import fuse
 from horovod_tpu.models import transformer as jtr
@@ -249,6 +255,188 @@ def test_tokens_are_seeded():
     a = bp.make_tokens(args, "cpu")
     assert torch.equal(a, bp.make_tokens(args, "cpu"))
     assert a.shape == (2, 8) and int(a.max()) < 50
+
+
+def test_tokens_are_split_by_local_rank():
+    """Local rank r of n takes rows [r * b, (r + 1) * b) of the seeded
+    (b * n, seq) array, as the JAX example shards it over local devices;
+    local rank 0 of 1 keeps the world-of-one batch."""
+    args = argparse.Namespace(seed=3, vocab=50, batch_size=2, seq_len=8)
+    whole = np.random.RandomState(3).randint(0, 50, (6, 8))
+    for rank in range(3):
+        got = bp.make_tokens(args, "cpu", local_rank=rank, local_size=3)
+        np.testing.assert_array_equal(got.numpy(),
+                                      whole[2 * rank:2 * rank + 2])
+    np.testing.assert_array_equal(bp.make_tokens(args, "cpu").numpy(),
+                                  np.random.RandomState(3).randint(
+                                      0, 50, (2, 8)))
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism at world size 2: each rank trains on its own rows.
+# ---------------------------------------------------------------------------
+
+TWO_RANK_WORKER = r"""
+import argparse, json, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import bert_pretraining as bp
+from horovod_tpu_torch.models import transformer as ttr
+
+work = sys.argv[1]
+tiny = json.loads(sys.argv[2])
+hvd.init(device="cpu")
+model = ttr.TransformerLM(ttr.TransformerConfig(
+    **tiny, dtype=torch.float32, attention_fn=bp.flash_attention))
+state = np.load(work + "/init.npz")
+model.load_state_dict({k: torch.from_numpy(state[k]) for k in state.files})
+opt = bp.make_optimizer(model)
+args = argparse.Namespace(seed=0, vocab=tiny["vocab_size"], batch_size=1,
+                          seq_len=tiny["max_len"])
+tokens = bp.make_tokens(args, "cpu", hvd.local_rank(), hvd.local_size())
+losses = [float(bp.train_step(model, opt, tokens)) for _ in range(2)]
+np.savez(f"{work}/rank{hvd.rank()}.npz", tokens=tokens.numpy(),
+         **{n: p.detach().numpy() for n, p in model.named_parameters()})
+print("RESULT " + json.dumps({"rank": hvd.rank(), "losses": losses}),
+      flush=True)
+hvd.shutdown()
+"""
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _jax_two_rank_reference(tokens):
+    """Two steps of the JAX example's data-parallel step in a world of two:
+    ``DistributedOptimizer(adamw, fused_update=True)`` under ``hvd.jit``,
+    the (2, seq) batch sharded one row per rank (``P(HVD_AXIS)``), the loss
+    averaged over ranks. Returns the initial and final params and the two
+    losses."""
+    jmodel = jtr.TransformerLM(jtr.TransformerConfig(
+        **TINY, dtype=jnp.float32, attention_fn=jflash))
+    params = jmodel.init(jax.random.PRNGKey(0),
+                         jnp.asarray(tokens[:1]))["params"]
+    init = jax.device_get(params)
+    # The suite's 8-device JAX world may be up in this process:
+    # shrink it to two for the reference and restore it after.
+    was_up = jhvd.is_initialized()
+    jhvd.shutdown()
+    jhvd.init(devices=jax.devices()[:2])
+    try:
+        opt = hvd_jax.DistributedOptimizer(
+            optax.adamw(1e-4, weight_decay=0.01), fused_update=True)
+        state = opt.init(params)
+
+        def loss_fn(p, toks):
+            logits = jmodel.apply({"params": p}, toks)
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, jnp.roll(toks, -1, axis=1)).mean()
+
+        def one_step(p, state, toks):
+            loss, grads = jax.value_and_grad(loss_fn)(p, toks)
+            upd, state = opt.update(grads, state, p)
+            return (optax.apply_updates(p, upd), state,
+                    hvd_jax.allreduce(loss), hvd_jax.allreduce_pytree(grads))
+
+        P = jax.sharding.PartitionSpec
+        step = hvd_jax.jit(one_step, in_specs=(P(), P(), P(hvd_jax.HVD_AXIS)),
+                           out_specs=(P(), P(), P(), P()))
+        losses, grads = [], []
+        for _ in range(2):
+            params, state, loss, g = step(params, state, jnp.asarray(tokens))
+            losses.append(float(loss))
+            grads.append(jax.device_get(g))
+        return init, jax.device_get(params), losses, grads[0]
+    finally:
+        jhvd.shutdown()
+        if was_up:
+            jhvd.init()
+
+
+@pytest.fixture(scope="module")
+def two_rank_run(tmp_path_factory):
+    """The port's two steps in a 2-process gloo world (batch 1 per rank)
+    and the JAX package's at world size 2, from the same flax init."""
+    work = str(tmp_path_factory.mktemp("two_rank"))
+    tokens = np.random.RandomState(0).randint(0, TINY["vocab_size"],
+                                              (2, TINY["max_len"]))
+    init, final, jlosses, jgrads = _jax_two_rank_reference(tokens)
+    np.savez(os.path.join(work, "init.npz"),
+             **{k: v.numpy() for k, v in params_from_jax(init).items()})
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", TWO_RANK_WORKER, work, json.dumps(TINY)],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-3000:]
+            line = [l for l in out.splitlines() if l.startswith("RESULT ")]
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
+             for r in range(2)]
+    return {"tokens": tokens, "jax_losses": jlosses,
+            "jax_params": params_from_jax(final),
+            "jax_first_grads": params_from_jax(jgrads), "results": results,
+            "ranks": ranks}
+
+
+def test_ranks_train_on_their_own_rows(two_rank_run):
+    """Rank r holds row r of the seeded (batch * local_size, seq) array,
+    as each JAX device holds its shard of ``P(HVD_AXIS)``."""
+    tokens = two_rank_run["tokens"]
+    for rank, got in enumerate(two_rank_run["ranks"]):
+        np.testing.assert_array_equal(got["tokens"], tokens[rank:rank + 1])
+    assert not np.array_equal(tokens[0], tokens[1])
+
+
+def test_two_rank_losses_match_jax(two_rank_run):
+    """The rank-averaged loss of both steps, on every rank, against the
+    JAX package at world size 2 (rtol 1e-5, as at world size 1)."""
+    for res in two_rank_run["results"]:
+        np.testing.assert_allclose(res["losses"], two_rank_run["jax_losses"],
+                                   rtol=1e-5)
+
+
+def test_two_rank_params_match_jax(two_rank_run):
+    """Parameters after two steps, on every rank, against the JAX package
+    at world size 2: atol 2e-6, the world-of-one tests' tolerance. As
+    there, the key biases (gradient zero in exact arithmetic) and the
+    elements whose rank-averaged first gradient is eps-sized (|g| < 1e-6:
+    Adam's lr * g / (|g| + 1e-8) turns each framework's float32 rounding of
+    g into a different fraction of lr; here layers.0.mlp_out.weight[53, 89],
+    g = -4.6e-8) are held to the two-step bound of at most lr per step."""
+    want = two_rank_run["jax_params"]
+    first = two_rank_run["jax_first_grads"]
+    for got in two_rank_run["ranks"]:
+        for name, ref in want.items():
+            if name.endswith("attn.key.bias"):
+                assert float(np.abs(got[name]).max()) <= 2 * 1e-4 * (1 + 1e-3)
+                continue
+            g, r = got[name], ref.numpy()
+            eps_sized = np.abs(first[name].numpy()) < 1e-6
+            assert np.abs(g - r)[eps_sized].max(initial=0.0) <= (
+                4 * 1e-4 * (1 + 1e-3)), name
+            np.testing.assert_allclose(g[~eps_sized], r[~eps_sized],
+                                       atol=2e-6, rtol=0, err_msg=name)
 
 
 FORBIDDEN = ("jax", "flax", "optax", "horovod_tpu")
