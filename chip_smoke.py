@@ -9,40 +9,45 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final line:
 
 1. ``device``: ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. ``build``: the nvcc builds of the three kernel sources (flash
-   attention, the wgmma flash forward, the LM-head loss), started together
-   (or their reuse), the compiler's register, spill and shared-memory
-   report, and the HGMMA (wgmma) and UTMALDG (TMA load) instruction counts
-   of the wgmma forward from ``cuobjdump -sass`` of its library; a count of
-   0, or a compiler note that its wgmma were serialized, fails the phase.
+2. ``build``: the nvcc builds of the four kernel sources (the mma.sync
+   flash kernels, the wgmma flash forward, the wgmma flash backward, the
+   LM-head loss), started together (or their reuse), the compiler's
+   register, spill and shared-memory report, and the HGMMA (wgmma) and
+   UTMALDG (TMA load) instruction counts of every wgmma kernel instance
+   ({bf16, f16} x head dims {64, 128, 256}) from ``cuobjdump -sass``; a
+   missing instance, a count of 0, a compiler note that wgmma were
+   serialized, or a spill in any kernel fails the phase.
 3. ``flash_fwd``, ``flash_dq``, ``flash_dkv``: each CUDA kernel against its
    plain PyTorch version on the same inputs, at the training path's shape
    (8, 512, 12, 64) bf16 and on extra cases (causal, ragged sequences, head
-   dims 32 and 128, head dims 8 and 48 padded by the wrapper, float32
-   inputs), each case naming the forward route it took. The tolerance is
-   stated per output. Each line has the kernel's median time, the plain
-   version's, the bound of the card for the same work, and one PyTorch
-   call computing the same function as a yardstick (timed here, never used
-   by the port): ``F.scaled_dot_product_attention``'s forward for the
-   forward, whose line also has the ``mma.sync`` route's time at the same
-   shape; the flash backward
-   (``aten._scaled_dot_product_flash_attention_backward``, dQ, dK and dV
-   in one call) for the other two.
+   dims 32, 128 and 256, head dims 8, 12, 48, 136 and 200 padded by the
+   wrapper, float16 inputs computed in float16, float32 inputs at head
+   dims 64 and 200), each case naming the route each kernel took. The
+   tolerance is stated per output. Each line has the main path's kernel's
+   median time (the wgmma route), the ``mma.sync`` route's time at the same
+   shape, the plain version's, the bound of the card for the same work,
+   host time per call by route, and one PyTorch call computing the same
+   function as a yardstick (timed here, never used by the port):
+   ``F.scaled_dot_product_attention``'s forward for the forward; the flash
+   backward (``aten._scaled_dot_product_flash_attention_backward``, dQ, dK
+   and dV in one call) for the other two.
 4. ``ce_fwd``, ``ce_dx``, ``ce_dw``: the LM-head cross-entropy kernels
    against their plain versions at the training path's shape (4096 tokens,
    hidden 768, vocabulary 30522) and on extra cases (ragged token counts,
-   small ragged vocabularies, hidden 256, 512 and 1024, hidden 16 padded
-   by the wrapper, float32 hidden states), each with labels at columns 0
-   and V-1 and rows whose cotangent is 0. Each line has the kernel's median
-   time, the plain version's, the bound, and the cuBLAS bf16 products of
-   the same shapes as a yardstick (timed here, never used by the port).
+   small ragged vocabularies, hidden 256, 512 and 1024, hidden 16, 12 and
+   1020 padded by the wrapper, float32 hidden states), each with labels at
+   columns 0 and V-1 and rows whose cotangent is 0. Each line has the
+   kernel's median time, the plain version's, the bound, and the cuBLAS
+   bf16 products of the same shapes as a yardstick (timed here, never used
+   by the port).
 5. ``bert_step``: slice 1, full-width BERT-base training with ``--flash``
    through the port's entry points (``horovod_tpu_torch.bert_pretraining``):
    3 warm-up and 10 timed steps on one fixed random batch with the launch
-   counters zeroed just before and read just after (all 12 forward launches
-   of a step on the wgmma route); the loss must be finite and fall, and one
-   forward/backward with the plain attention must agree with the kernel
-   path (loss within 2e-2, gradient cosine >= 0.99).
+   counters zeroed just before and read just after (all 12 forward, dQ and
+   dK/dV launches of a step on the wgmma route, none on mma.sync); the
+   loss must be finite and fall, and one forward/backward with the plain
+   attention must agree with the kernel path (loss within 2e-2, gradient
+   cosine >= 0.99).
 6. ``bert_step_fused_loss``: slice 2, the same with ``--flash
    --fused-loss`` (full width and depth, 3 + 10 steps): each LM-head kernel
    must launch once per step and each flash kernel 12 times, the loss must
@@ -53,8 +58,8 @@ exits non-zero without the final line:
    slice 1's.
 7. ``bert_large_fused_loss``: BERT-large widths (hidden 1024, 16 heads, MLP
    4096) with ``--flash --fused-loss``, depth cut to 2 layers: 3 steps on
-   the card, the loss finite and falling, the route counters shown (the
-   LM-head kernels at their hidden-1024 instance).
+   the card, the loss finite and falling, every flash launch on the wgmma
+   route, the LM-head kernels at their hidden-1024 instance.
 8. The ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -78,7 +83,9 @@ import torch
 # float32 row log-sum-exp within 1e-3. Float32 inputs reach the kernels
 # rounded to bf16 (the wrappers' documented precision), so their plain
 # version runs on that rounding, and their outputs are held to the same
-# tolerances.
+# tolerances. Float16 inputs are computed in float16 (P and dS rounded to
+# f16, 3 more mantissa bits than bf16) and held to the same tolerance
+# against the plain version on the same float16 inputs.
 BF16_REL_TOL = 2e-2
 LSE_ABS_TOL = 1e-3
 # The LM-head kernels' float32 outputs (dW, db) against their plain
@@ -92,7 +99,7 @@ F32_REL_TOL = 1e-3
 
 MAIN_SHAPE = (8, 512, 12, 64)  # (batch, seq, heads, head_dim) of BERT-base
 LAYERS = 12  # each kernel launches once per layer per step (checked below)
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 EXTRA_CASES = [  # (b*h, seq, head_dim, causal, dtype)
     (96, 384, 64, True, BF16), (6, 200, 64, False, BF16),
     (6, 200, 64, True, BF16), (8, 128, 32, False, BF16),
@@ -100,65 +107,102 @@ EXTRA_CASES = [  # (b*h, seq, head_dim, causal, dtype)
     (24, 384, 128, True, BF16), (6, 200, 128, True, BF16),
     (8, 136, 8, True, BF16), (8, 200, 48, False, BF16),
     (6, 70, 64, False, BF16), (6, 129, 128, True, BF16),
-    (96, 512, 64, False, F32)]
+    (96, 512, 64, False, F32),
+    # head dim 256, padded head dims 136, 200 and 12, float16 (computed in
+    # float16; head dim 16 padded to 64), float32 above 128, and ragged
+    # sequences at head dim 256
+    (12, 512, 256, False, BF16), (12, 384, 256, True, BF16),
+    (6, 200, 136, False, BF16), (6, 200, 200, True, BF16),
+    (8, 128, 12, False, BF16),
+    (96, 384, 64, True, F16), (24, 512, 128, False, F16),
+    (8, 136, 16, False, F16),
+    (6, 200, 200, False, F32),
+    (6, 70, 256, False, BF16), (6, 129, 256, True, BF16)]
 SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
 WGMMA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_fwd_wgmma.cu"
+BWD_SOURCE = "horovod_tpu_torch/ops/csrc/flash_bwd_wgmma.cu"
 REPLACES = {"flash_fwd": "horovod_tpu/ops/flash_attention.py:67",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:168",
             "flash_dkv": "horovod_tpu/ops/flash_attention.py:199"}
+# The main path's kernel of each flash row (the wgmma route) and its source.
+WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", WGMMA_SOURCE),
+                 "flash_dq": ("flash_dq_wgmma_kernel", BWD_SOURCE),
+                 "flash_dkv": ("flash_dkv_wgmma_kernel", BWD_SOURCE)}
 
 CE_MAIN = (4096, 768, 30522)  # (tokens = 8 x 512, hidden, vocabulary)
 CE_EXTRA = [  # (tokens, hidden, vocabulary, hidden dtype)
     (1000, 768, 30522, BF16), (64, 768, 70, BF16), (300, 768, 1000, BF16),
     (100, 256, 70, BF16), (77, 512, 1000, BF16),
     (4096, 1024, 30522, BF16), (77, 1024, 1000, BF16), (300, 16, 1000, BF16),
-    (300, 768, 1000, F32)]
+    (300, 768, 1000, F32),
+    # hidden sizes that are not a multiple of 8, padded by the wrapper
+    (300, 12, 1000, BF16), (77, 1020, 1000, BF16)]
 CE_SOURCE = "horovod_tpu_torch/ops/csrc/chunked_loss.cu"
 CE_REPLACES = {"ce_fwd": "horovod_tpu/ops/chunked_loss.py:181",
                "ce_dx": "horovod_tpu/ops/chunked_loss.py:233",
                "ce_dw": "horovod_tpu/ops/chunked_loss.py:254"}
 
 
+# Mangled kernel names: the name, then template arguments, e.g.
+# ...flash_dq_wgmma_kernelI13__nv_bfloat16Li64EE... or ...ILi128EE...
+_KERNEL_NAME = re.compile(
+    r"\d([a-z][a-z_]*_kernel)(I[0-9A-Za-z_]*?E)?(?:E|v|$)")
+_TYPE_ARGS = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def short_name(mangled):
+    """``kernel<args>`` from a mangled kernel name, e.g.
+    ``flash_dq_wgmma_kernel<bf16,64>``; the name alone where it has no
+    template arguments."""
+    found = _KERNEL_NAME.search(mangled)
+    if found is None:
+        return mangled
+    types = re.findall(r"13__nv_bfloat16|6__half", found.group(2) or "")
+    dims = re.findall(r"Li(\d+)E", found.group(2) or "")
+    args = [_TYPE_ARGS[t] for t in types] + dims
+    return f"{found.group(1)}<{','.join(args)}>" if args else found.group(1)
+
+
 def ptxas_report(log):
     """``{kernel<instance>: "R registers, S B spill stores, L B spill
-    loads"}`` from an ``nvcc -Xptxas -v`` log, and its performance notes
-    (e.g. wgmma serialized by the compiler)."""
-    kernels, notes, name = {}, [], None
+    loads"}`` from an ``nvcc -Xptxas -v`` log, its performance notes
+    (e.g. wgmma serialized by the compiler), and the kernels that spill."""
+    kernels, notes, spilled, name = {}, [], [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            short = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
-                              entry.group(1))
-            name = (f"{short.group(1)}<{short.group(2)}>" if short.group(2)
-                    else short.group(1))
+            name = short_name(entry.group(1))
             kernels[name] = ""
         elif "spill stores" in line and name:
             spills = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             kernels[name] += ", ".join(f"{n} B spill {k}" for n, k in spills)
+            if any(int(n) for n, _ in spills):
+                spilled.append(name)
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             kernels[name] = f"{regs} registers, {kernels[name]}"
         elif "Performance Loss" in line:
             notes.append(line.strip())
-    return kernels, sorted(set(notes))
+    return kernels, sorted(set(notes)), spilled
 
 
 def wgmma_sass_counts(library):
-    """HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions in the
-    compiled flash_fwd_wgmma kernels of ``library`` (``cuobjdump -sass``)."""
+    """HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions in each
+    compiled kernel instance of ``library`` (``cuobjdump -sass``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", library],
         capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {"HGMMA": 0, "UTMALDG": 0}
-    inside = False
+    counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "flash_fwd_wgmma_kernel" in line
-        elif inside:
-            for op in counts:
-                counts[op] += op in line
+            current = counts.setdefault(
+                short_name(line.split("Function :")[1].strip()),
+                {"HGMMA": 0, "UTMALDG": 0})
+        elif current is not None:
+            for op in current:
+                current[op] += op in line
     return counts
 
 
@@ -234,18 +278,27 @@ def kernel_inputs(bh, s, d, seed, dtype=BF16):
 
 
 def check_kernels(fa, bh, s, d, causal, dtype=BF16, seed=0):
-    """Each kernel against its plain version on one input (for float32
-    inputs: on their bf16 rounding, what the kernels compute on); returns
-    the inputs, per-kernel max errors and the forward route taken."""
+    """Each kernel against its plain version on one input (float16 inputs
+    on themselves, computed in float16; others on their bf16 rounding,
+    what the kernels compute on); returns the inputs, per-output max
+    errors and the route each kernel took."""
     q, k, v, do = kernel_inputs(bh, s, d, seed, dtype)
     before = dict(fa.LAUNCHES)
     o, lse = fa.flash_fwd(q, k, v, causal)
-    route = next(r for r in fa.FWD_ROUTES
-                 if fa.LAUNCHES["flash_fwd_" + r] > before["flash_fwd_" + r])
     delta = fa.attention_delta(do, o)
     dq = fa.flash_dq(q, k, v, lse, delta, do, causal)
     dk, dv = fa.flash_dkv(q, k, v, lse, delta, do, causal)
-    rq, rk, rv, rdo = (t.to(BF16) for t in (q, k, v, do))
+    routes = {}
+    for kernel in fa.KERNELS:
+        took = [r for r in fa.ROUTES if fa.LAUNCHES[f"{kernel}_{r}"] >
+                before[f"{kernel}_{r}"]]
+        route_of = fa.fwd_route if kernel == "flash_fwd" else fa.bwd_route
+        if took != [route_of(dtype, d)]:
+            raise AssertionError(f"{kernel}({bh},{s},{d},{dtype}) took the "
+                                 f"routes {took}")
+        routes[kernel] = took[0]
+    kd = F16 if dtype == F16 else BF16
+    rq, rk, rv, rdo = (t.to(kd) for t in (q, k, v, do))
     ro, rlse = fa.flash_fwd_reference(rq, rk, rv, causal)
     rdq = fa.flash_dq_reference(rq, rk, rv, lse, delta, rdo, causal)
     rdk, rdv = fa.flash_dkv_reference(rq, rk, rv, lse, delta, rdo, causal)
@@ -260,9 +313,7 @@ def check_kernels(fa, bh, s, d, causal, dtype=BF16, seed=0):
     if not lse_err <= LSE_ABS_TOL:
         raise AssertionError(f"lse{tag}: max abs err {lse_err}")
     errs["lse"] = (lse_err, lse_err / lse_scale)
-    if route != fa.fwd_route(dtype, d):
-        raise AssertionError(f"flash_fwd{tag} took the {route} route")
-    return (q, k, v, do, o, lse, delta), errs, route
+    return (q, k, v, do, o, lse, delta), errs, routes
 
 
 def sdpa_flash_backward(q4, k4, v4, do4):
@@ -279,12 +330,12 @@ def kernel_phases(fa, peak):
     """Phase 3: correctness on every case, timing at the main shape."""
     b, s, h, d = MAIN_SHAPE
     bh = b * h
-    (q, k, v, do, o, lse, delta), main_errs, main_route = check_kernels(
+    (q, k, v, do, o, lse, delta), main_errs, main_routes = check_kernels(
         fa, bh, s, d, False)
     extra = []
     for *case, dtype in EXTRA_CASES:
-        _, errs, route = check_kernels(fa, *case, dtype, seed=1)
-        extra.append({"case": [*case, str(dtype)], "fwd_route": route,
+        _, errs, routes = check_kernels(fa, *case, dtype, seed=1)
+        extra.append({"case": [*case, str(dtype)], "routes": routes,
                       "max_abs_err": {n: e[0] for n, e in errs.items()},
                       "max_rel_err": {n: e[1] for n, e in errs.items()}})
 
@@ -296,15 +347,19 @@ def kernel_phases(fa, peak):
         "flash_dq": (5 * elt * 2 + 2 * bh * s * 4, 6 * bh * s * s * d),
         "flash_dkv": (6 * elt * 2 + 2 * bh * s * 4, 8 * bh * s * s * d),
     }
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, False),
-                      lambda: fa.flash_fwd_reference(q, k, v, False)),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, lse, delta, do, False),
-                     lambda: fa.flash_dq_reference(q, k, v, lse, delta, do,
-                                                   False)),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, lse, delta, do, False),
-                      lambda: fa.flash_dkv_reference(q, k, v, lse, delta,
-                                                     do, False)),
+
+    def kernel_call(name, route=None):
+        if name == "flash_fwd":
+            return lambda: fa.flash_fwd(q, k, v, False, route=route)
+        fn = fa.flash_dq if name == "flash_dq" else fa.flash_dkv
+        return lambda: fn(q, k, v, lse, delta, do, False, route=route)
+
+    plain = {
+        "flash_fwd": lambda: fa.flash_fwd_reference(q, k, v, False),
+        "flash_dq": lambda: fa.flash_dq_reference(q, k, v, lse, delta, do,
+                                                  False),
+        "flash_dkv": lambda: fa.flash_dkv_reference(q, k, v, lse, delta, do,
+                                                    False),
     }
     # Yardsticks: one PyTorch call per function, where one exists.
     q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
@@ -320,58 +375,52 @@ def kernel_phases(fa, peak):
     sdpa_fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
     sdpa_bwd_ms = median_ms(sdpa_flash_backward(q4, k4, v4,
                                                 do.view(b, h, s, d)))
-    # The forward's routes at the same shape, in the same call.
-    mma_fwd = lambda: fa.flash_fwd(q, k, v, False, route="mma")  # noqa: E731
-    mma_ms = median_ms(mma_fwd)
-    route_host_us = {"wgmma": host_us(calls["flash_fwd"][0]),
-                     "mma": host_us(mma_fwd)}
     library_of = {"flash_fwd": sdpa_fwd_ms, "flash_dq": sdpa_bwd_ms,
                   "flash_dkv": sdpa_bwd_ms}
     errs_of = {"flash_fwd": {"o": main_errs["o"], "lse": main_errs["lse"]},
                "flash_dq": {"dq": main_errs["dq"]},
                "flash_dkv": {"dk": main_errs["dk"], "dv": main_errs["dv"]}}
     rows = {}
-    for name, (kernel, plain) in calls.items():
+    for name in fa.KERNELS:
         nbytes, ops = works[name]
         bytes_ms = nbytes / peak.hbm_bytes_per_s * 1e3
         ops_ms = ops / peak.bf16_flops * 1e3
+        # The main path's kernel is the wgmma route; the mma.sync route's
+        # time at the same shape, in the same call, stands beside it.
+        kernel, source = WGMMA_KERNELS[name]
         rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name],
             "max_abs_err": max(e[0] for key, e in errs_of[name].items()
                                if key != "lse"),
-            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "ms": median_ms(kernel_call(name)),
+            "plain_ms": median_ms(plain[name]),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_of[name],
+            "kernel": kernel, "kernel_route": main_routes[name],
+            "mma_sync_ms": median_ms(kernel_call(name, "mma")),
+            "mma_sync_source": SOURCE,
         }
-        fwd_fields = {}
-        if name == "flash_fwd":
-            # The main path's forward is the wgmma kernel; the mma.sync
-            # route's time at the same shape stands beside it.
-            rows[name].update(source=WGMMA_SOURCE,
-                              kernel="flash_fwd_wgmma_kernel",
-                              fwd_route=main_route, mma_sync_ms=mma_ms,
-                              mma_sync_source=SOURCE)
-            fwd_fields = {"fwd_route": main_route, "mma_sync_ms": mma_ms,
-                          "host_us_per_call_by_route": route_host_us}
         emit(name, shape=[bh, s, d], causal=False,
              max_abs_err={n: e[0] for n, e in errs_of[name].items()},
              max_rel_err={n: e[1] for n, e in errs_of[name].items()},
              tolerance={
-                 "bf16_outputs": f"{BF16_REL_TOL} x max|ref|",
+                 "bf16_f16_outputs": f"{BF16_REL_TOL} x max|ref|",
                  "lse_abs": LSE_ABS_TOL},
              ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
              bound_ms=rows[name]["bound_ms"],
              bound_by=rows[name]["bound_by"],
-             launches_per_step=LAYERS, host_us_per_call=host_us(kernel),
+             route=main_routes[name], mma_sync_ms=rows[name]["mma_sync_ms"],
+             launches_per_step=LAYERS,
+             host_us_per_call_by_route={
+                 r: host_us(kernel_call(name, r)) for r in fa.ROUTES},
              library_ms=rows[name]["library_ms"],
              library="F.scaled_dot_product_attention forward"
              if name == "flash_fwd" else
              "aten._scaled_dot_product_flash_attention_backward (dQ, dK, "
              "dV in one call)",
              sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
-             **fwd_fields,
              extra_cases=extra if name == "flash_fwd" else None)
     return rows
 
@@ -579,10 +628,13 @@ def run_steps(bp, hvd, flags, counters, layers=LAYERS, warmup=3, timed=10):
 
 
 def flash_per_step(layers):
-    """Launches per step of each flash counter: every forward on the wgmma
-    route, none on the mma.sync route."""
-    return {"flash_fwd": layers, "flash_fwd_wgmma": layers,
-            "flash_fwd_mma": 0, "flash_dq": layers, "flash_dkv": layers}
+    """Launches per step of each flash counter: every forward, dQ and dK/dV
+    on the wgmma route, none on the mma.sync route."""
+    per_step = {}
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        per_step.update({kernel: layers, kernel + "_wgmma": layers,
+                         kernel + "_mma": 0})
+    return per_step
 
 
 def check_launches(launches, per_step, steps):
@@ -718,6 +770,50 @@ def bert_large_phase(bp, fa, cl, hvd, peak):
          depth_cut={"layers": LARGE_LAYERS, "of": 24})
 
 
+# The wgmma libraries and their kernels, each with instances
+# {bf16, f16} x {64, 128, 256}.
+WGMMA_LIBRARIES = {"flash_fwd_wgmma": ("flash_fwd_wgmma_kernel",),
+                   "flash_bwd_wgmma": ("flash_dq_wgmma_kernel",
+                                       "flash_dkv_wgmma_kernel")}
+
+
+def build_phase(_build, fa, cl):
+    """Phase 2: every kernel source built at once (or reused), with the
+    compiler's report; fails on a spill in any kernel instance, on a ptxas
+    note that wgmma were serialized, or on a wgmma kernel instance without
+    HGMMA or UTMALDG instructions."""
+    sources = [*fa.LIBRARIES, "chunked_loss"]
+    t0 = time.perf_counter()
+    _build.load_all(sources)
+    for name in fa.LIBRARIES:
+        fa.library(name)
+    cl._lib()
+    libraries, faults = {}, []
+    for name in sources:
+        info = _build.BUILD_INFO[name]
+        with open(info["path"][:-3] + ".log") as fh:
+            kernels, notes, spilled = ptxas_report(fh.read())
+        libraries[name] = {"nvcc_seconds": info["seconds"],
+                           "cached": info["cached"], "ptxas": kernels,
+                           "ptxas_notes": notes}
+        faults += [f"{name}: {k} spills" for k in spilled]
+        if name in WGMMA_LIBRARIES:
+            faults += [f"{name}: {n}" for n in notes if "serialized" in n
+                       or "C7520" in n or "C7514" in n]
+    sass = {}
+    for name in WGMMA_LIBRARIES:
+        sass[name] = wgmma_sass_counts(_build.BUILD_INFO[name]["path"])
+        want = {f"{kernel}<{t},{d}>" for kernel in WGMMA_LIBRARIES[name]
+                for t in ("bf16", "f16") for d in (64, 128, 256)}
+        faults += [f"{name}: no {k}" for k in sorted(want - set(sass[name]))]
+        faults += [f"{name}: {k} {c}" for k, c in sass[name].items()
+                   if not (c["HGMMA"] and c["UTMALDG"])]
+    emit("build", seconds=time.perf_counter() - t0, libraries=libraries,
+         wgmma_sass=sass)
+    if faults:
+        raise AssertionError(f"build: {faults}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -739,30 +835,7 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, peak_assumed=peak._asdict())
 
-    t0 = time.perf_counter()
-    # The sources compile at once, unless already built.
-    sources = ["flash_attention", "flash_fwd_wgmma", "chunked_loss"]
-    _build.load_all(sources)
-    fa._lib()
-    fa._wgmma_lib()
-    cl._lib()
-    libraries = {}
-    for name in sources:
-        info = _build.BUILD_INFO[name]
-        with open(info["path"][:-3] + ".log") as fh:
-            kernels, notes = ptxas_report(fh.read())
-        libraries[name] = {"nvcc_seconds": info["seconds"],
-                           "cached": info["cached"], "ptxas": kernels,
-                           "ptxas_notes": notes}
-    serialized = [line for line in libraries["flash_fwd_wgmma"]["ptxas_notes"]
-                  if "serialized" in line]
-    sass = wgmma_sass_counts(_build.BUILD_INFO["flash_fwd_wgmma"]["path"])
-    emit("build", seconds=time.perf_counter() - t0, libraries=libraries,
-         flash_fwd_wgmma_sass=sass)
-    if not (sass["HGMMA"] and sass["UTMALDG"]) or serialized:
-        raise AssertionError(f"the wgmma forward is not what it claims: "
-                             f"{sass}, {serialized}")
-
+    build_phase(_build, fa, cl)
     rows = kernel_phases(fa, peak)
     rows.update(ce_phases(cl, peak))
     slice1 = bert_phase(bp, fa, hvd, peak)
@@ -772,8 +845,9 @@ def main():
     bert_large_phase(bp, fa, cl, hvd, peak)
     for name, row in rows.items():
         row["launches"] = launches[name]
-    rows["flash_fwd"]["launches_by_route"] = {
-        r: launches["flash_fwd_" + r] for r in fa.FWD_ROUTES}
+    for name in fa.KERNELS:
+        rows[name]["launches_by_route"] = {
+            r: launches[f"{name}_{r}"] for r in fa.ROUTES}
     hvd.shutdown()
     print(json.dumps({"kernels": [rows[n] for n in (*REPLACES, *CE_REPLACES)]}),
           flush=True)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded through ``ctypes``: no PyTorch headers,
 no ninja, a build of seconds. The library lands in ``ops/_build/`` under a
-name that carries the hash of the source and the flags, so a build is
-reused until either changes. A failed build raises; nothing falls back.
+name that carries the hash of the source, of the ``csrc/*.cuh`` headers it
+includes and of the flags, so a build is reused until one of them
+changes. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,8 +27,8 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# After the source: dlopen/dlsym, with which flash_fwd_wgmma.cu finds
-# cuTensorMapEncodeTiled in the libcuda.so.1 already loaded (no link
+# After the source: dlopen/dlsym, with which the wgmma kernels (hopper.cuh)
+# find cuTensorMapEncodeTiled in the libcuda.so.1 already loaded (no link
 # against it).
 NVCC_LIBS = ["-ldl"]
 
@@ -54,11 +56,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` that it includes
+    (with ``#include "..."``), directly or through another header."""
+    paths = [os.path.join(SRC_DIR, name + ".cu")]
+    for path in paths:  # grows while it is walked
+        with open(path, "rb") as fh:
+            for include in _INCLUDE.findall(fh.read()):
+                dep = os.path.join(SRC_DIR, include.decode())
+                if os.path.exists(dep) and dep not in paths:
+                    paths.append(dep)
+    return paths
+
+
 def library_path(name: str) -> str:
     """Path of the built library of ``csrc/<name>.cu`` for the current
-    source and flags."""
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read())
+    source, the headers it includes and the flags."""
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     digest.update(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

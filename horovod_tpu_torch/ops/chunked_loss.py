@@ -23,14 +23,15 @@ Two versions, with the contract of the JAX package's pair:
   the kernels are checked against. Nothing on the CUDA path calls them.
 
 **The CUDA path** takes bf16 or float32 hidden states at any hidden size
-that is a multiple of 8 up to 1024. The kernels have instances at 256,
+from 1 to 1024. The kernels have instances at 256,
 512, 768 and 1024; :func:`kernel_operands` zero-pads x and the head along
 H to the next instance, which is an exact rewrite (zero columns add
 nothing to x . W), and dx and dW are sliced back. Float32 hidden states
 are rounded to bf16 there, once per call, and so is the head: the
 products take bf16 operands and accumulate in float32, so the precision
 is bf16's; dx comes back in the hidden states' dtype, as in the JAX
-package. H above 1024 or not a multiple of 8 raises.
+package. H above 1024 and float16 hidden states raise (the kernels keep
+full-depth rows resident in shared memory; a loop over H lifts that).
 
 **Weight layout.** The head is torch's ``lm_head.weight`` of shape (V, H),
 the transpose of JAX's (H, V) ``kernel`` (``convert.py`` transposes it).
@@ -165,12 +166,11 @@ def _lib():
 def kernel_hidden(h: int) -> int:
     """The hidden size of the kernel instance that takes hidden size ``h``:
     the smallest of :data:`SUPPORTED_HIDDEN` that holds it. Raises
-    ValueError where the CUDA path stops: ``h`` not a multiple of 8, or
-    above 1024."""
-    if h <= 0 or h % 8 or h > SUPPORTED_HIDDEN[-1]:
+    ValueError where the CUDA path stops: ``h`` not in 1..1024."""
+    if not 0 < h <= SUPPORTED_HIDDEN[-1]:
         raise ValueError(
             f"hidden size {h} has no CUDA kernel: the kernels take hidden "
-            f"sizes that are multiples of 8 up to {SUPPORTED_HIDDEN[-1]}")
+            f"sizes from 1 to {SUPPORTED_HIDDEN[-1]}")
     return next(k for k in SUPPORTED_HIDDEN if k >= h)
 
 
@@ -390,7 +390,7 @@ def fused_softmax_cross_entropy(hidden, weight, bias, labels,
     float32 with the leading shape of ``hidden``.
 
     hidden: (..., H) in the compute dtype (bf16 or float32 on CUDA, where
-    H is a multiple of 8 up to 1024);
+    H is at most 1024);
     weight: (V, H), torch's ``lm_head.weight`` (the transpose of JAX's
     kernel); bias: (V,); labels: (...) integers in ``[0, V)``. dx comes
     back in ``hidden``'s dtype, dW and db in the parameters'. ``block_n``

@@ -43,9 +43,10 @@
 // resident tile's A fragments from shared memory at each use instead of
 // holding them in registers, and dK/dV splits its output columns over
 // blockIdx.z (64 each, the score products recomputed per half) so that its
-// accumulators stay at the d = 64 count. This file's forward is the route
-// for float32 inputs and head dim 32; bf16 at head dims 64 and 128 takes
-// the wgmma forward of flash_fwd_wgmma.cu.
+// accumulators stay at the d = 64 count. This file's kernels are the
+// mma.sync route: bf16 at head dim 32 and float32 inputs up to head dim 128;
+// the wgmma kernels of flash_fwd_wgmma.cu and flash_bwd_wgmma.cu take the
+// rest.
 //
 // Plain C interface for ctypes: every entry point launches on the given
 // stream and returns the cudaError_t of the launch (or -1 for a head

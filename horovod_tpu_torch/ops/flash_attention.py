@@ -13,29 +13,42 @@ dK/dV (looping over query tiles), per the flash backward recurrence:
     dq_i = Σ_j ds_ij · k_j · scale
     dk_j = Σ_i ds_ij · q_i · scale
 
-On CUDA tensors hand-written kernels run. The forward has two routes:
-bf16 inputs at a head dim of 64 or 128 (after padding) take the Hopper
-kernel of ``csrc/flash_fwd_wgmma.cu`` (wgmma fed by a TMA/mbarrier ring);
-float32 inputs and head dims up to 32 take ``flash_fwd_kernel`` of
-``csrc/flash_attention.cu`` (mma.sync). dQ and dK/dV are that file's
-kernels. The kernels have instances at head dims 32, 64 and 128; any other
-head dim that is a multiple of 8, up to 128, is zero-padded to the next
-instance (8 -> 32, 48 -> 64, 96 -> 128) and the outputs are sliced back.
-That is an exact rewrite: zero columns change neither q.k nor the kept
-columns of p.v, and the softmax scale stays ``d ** -0.5`` of the caller's
-head dim. Head dims above 128 or not a multiple of 8 raise.
+On CUDA tensors hand-written kernels run, on one of two routes that the
+forward and its backward share (:func:`fwd_route`, :func:`bwd_route`):
 
-Precision on the CUDA path: the operands are bf16 and every product
-accumulates in float32; float32 inputs are rounded to bf16 once, in the
-wrapper, so their precision is bf16's, and o, dq, dk and dv come back in
-the input dtype (lse is always float32), as in the JAX package.
+=================================  ========  ===============================
+input                              route     instance (padded head dim)
+=================================  ========  ===============================
+bf16, padded head dim 32           mma       32
+bf16, padded head dim 64/128/256   wgmma     the same
+float16, any head dim up to 256    wgmma     max(64, padded head dim)
+float32, head dim up to 128        mma       32/64/128 (rounded to bf16)
+float32, head dim 129-256          wgmma     256 (rounded to bf16)
+=================================  ========  ===============================
+
+The ``wgmma`` route is the Hopper kernels of ``csrc/flash_fwd_wgmma.cu``
+(forward) and ``csrc/flash_bwd_wgmma.cu`` (dQ, dK/dV): wgmma fed by a
+TMA/mbarrier ring, with bf16 or f16 operands. The ``mma`` route is the
+mma.sync kernels of ``csrc/flash_attention.cu`` (bf16 operands). Any head
+dim from 1 to 256 is zero-padded to the next instance (12 -> 32,
+48 -> 64, 136 -> 256) and the outputs are sliced back. That is an exact
+rewrite: zero columns change neither q.k nor the kept columns of p.v, and
+the softmax scale stays ``d ** -0.5`` of the caller's head dim. Head dims
+above 256 and dtypes other than these three raise.
+
+Precision on the CUDA path: every product accumulates in float32 from
+16-bit operands; float16 inputs are computed in float16, float32 inputs
+are rounded to bf16 once, in the wrapper, so their precision is bf16's;
+o, dq, dk and dv come back in the input dtype (lse is always float32), as
+in the JAX package.
 
 On CPU tensors the plain PyTorch versions in this module run the same
 recurrence in float32; they are also what the kernels are checked against.
 Nothing on the CUDA path calls them.
 
-Each kernel wrapper counts its launches in :data:`LAUNCHES`: the forward
-under ``flash_fwd`` and under the route it took.
+Each kernel wrapper counts its launches in :data:`LAUNCHES`: under its
+name (``flash_fwd``, ``flash_dq``, ``flash_dkv``) and under the route it
+took (``flash_dq_wgmma``, ...).
 """
 
 from __future__ import annotations
@@ -48,17 +61,21 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 #: Head dims with a kernel instance; others are padded up to one of these.
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
-#: Head dims (after padding) that the wgmma forward takes in bf16.
-WGMMA_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+#: Instances of the mma.sync kernels (bf16 operands).
+MMA_HEAD_DIMS = (32, 64, 128)
+#: Instances of the wgmma kernels (bf16 or f16 operands).
+WGMMA_HEAD_DIMS = (64, 128, 256)
 #: Input dtypes of the CUDA path (float32 is rounded to bf16).
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-FWD_ROUTES = ("wgmma", "mma")
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+ROUTES = ("wgmma", "mma")
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 #: Launches of each CUDA kernel, incremented where the wrapper launches it:
-#: ``flash_fwd`` counts every forward, ``flash_fwd_<route>`` those of a route.
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_fwd_mma": 0,
-            "flash_dq": 0, "flash_dkv": 0}
+#: ``flash_fwd`` counts every forward, ``flash_fwd_<route>`` those of a
+#: route; the same for ``flash_dq`` and ``flash_dkv``.
+LAUNCHES = {f"{kernel}{route}": 0 for kernel in KERNELS
+            for route in ("", "_wgmma", "_mma")}
 
 
 def reset_launch_counts() -> None:
@@ -143,73 +160,112 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "hvd_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                      _P],
+_FWD = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_DQ = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_DKV = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+#: Each kernel library (``csrc/<name>.cu``): its error-string function and
+#: its entry points with their C signatures.
+LIBRARIES = {
+    "flash_attention": ("hvd_flash_error_string", {
+        "hvd_flash_fwd": _FWD, "hvd_flash_dq": _DQ, "hvd_flash_dkv": _DKV}),
+    "flash_fwd_wgmma": ("hvd_flash_fwd_wgmma_error_string", {
+        "hvd_flash_fwd_wgmma": _FWD, "hvd_flash_fwd_wgmma_f16": _FWD}),
+    "flash_bwd_wgmma": ("hvd_flash_bwd_wgmma_error_string", {
+        "hvd_flash_dq_wgmma": _DQ, "hvd_flash_dq_wgmma_f16": _DQ,
+        "hvd_flash_dkv_wgmma": _DKV, "hvd_flash_dkv_wgmma_f16": _DKV}),
 }
+# (kernel, route) -> (library, entry point for bf16; f16 adds "_f16")
+_ENTRIES = {
+    ("flash_fwd", "mma"): ("flash_attention", "hvd_flash_fwd"),
+    ("flash_dq", "mma"): ("flash_attention", "hvd_flash_dq"),
+    ("flash_dkv", "mma"): ("flash_attention", "hvd_flash_dkv"),
+    ("flash_fwd", "wgmma"): ("flash_fwd_wgmma", "hvd_flash_fwd_wgmma"),
+    ("flash_dq", "wgmma"): ("flash_bwd_wgmma", "hvd_flash_dq_wgmma"),
+    ("flash_dkv", "wgmma"): ("flash_bwd_wgmma", "hvd_flash_dkv_wgmma"),
+}
+_LIBS: dict = {}
 
 
-_LIB = None
-_WGMMA_LIB = None
+def library(name):
+    """The library of ``csrc/<name>.cu`` (one of :data:`LIBRARIES`), built
+    on first use, with its C signatures."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        from horovod_tpu_torch.ops import _build
 
-
-def _bind(name, signatures, error_string):
-    from horovod_tpu_torch.ops import _build
-
-    lib = _build.load(name)
-    for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.error_string = getattr(lib, error_string)
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
+        error_string, signatures = LIBRARIES[name]
+        lib = _build.load(name)
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string = getattr(lib, error_string)
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
     return lib
 
 
-def _lib():
-    """The library of ``csrc/flash_attention.cu``, built on first use, with
-    its C signatures."""
-    global _LIB
-    if _LIB is None:
-        _LIB = _bind("flash_attention", _SIGNATURES, "hvd_flash_error_string")
-    return _LIB
-
-
-def _wgmma_lib():
-    """The library of ``csrc/flash_fwd_wgmma.cu``, built on first use."""
-    global _WGMMA_LIB
-    if _WGMMA_LIB is None:
-        signature = {"hvd_flash_fwd_wgmma": _SIGNATURES["hvd_flash_fwd"]}
-        _WGMMA_LIB = _bind("flash_fwd_wgmma", signature,
-                           "hvd_flash_fwd_wgmma_error_string")
-    return _WGMMA_LIB
+def _check_dtype(name, dtype):
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernels take bfloat16, float16 "
+                        f"or float32 inputs, got {dtype}")
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim of the kernel instance that takes head dim ``d``: the
-    smallest of :data:`SUPPORTED_HEAD_DIMS` that holds it. Raises
-    ValueError where the CUDA path stops: ``d`` not a multiple of 8, or
-    above 128."""
-    if d <= 0 or d % 8 or d > SUPPORTED_HEAD_DIMS[-1]:
+    """The smallest of :data:`SUPPORTED_HEAD_DIMS` that holds head dim
+    ``d``. Raises ValueError where the CUDA path stops: ``d`` not in
+    1..256."""
+    if not 0 < d <= SUPPORTED_HEAD_DIMS[-1]:
         raise ValueError(
             f"head_dim {d} has no CUDA kernel: the kernels take head dims "
-            f"that are multiples of 8 up to {SUPPORTED_HEAD_DIMS[-1]}")
+            f"from 1 to {SUPPORTED_HEAD_DIMS[-1]}")
     return next(k for k in SUPPORTED_HEAD_DIMS if k >= d)
 
 
-def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The forward kernel that takes inputs of ``dtype`` at head dim ``d``:
-    ``"wgmma"`` for bf16 at a padded head dim of 64 or 128, else
-    ``"mma"``. Decided on metadata only."""
-    if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"flash attention: the CUDA kernels take bfloat16 "
-                        f"or float32 inputs, got {dtype}")
+def kernel_instance(dtype: torch.dtype, d: int) -> int:
+    """The head dim of the kernel instance that takes inputs of ``dtype``
+    at head dim ``d`` (they are zero-padded to it): the next instance, and
+    at least 64 for float16, which only the wgmma kernels take."""
+    _check_dtype("flash attention", dtype)
     dp = kernel_head_dim(d)
+    return max(dp, WGMMA_HEAD_DIMS[0]) if dtype == torch.float16 else dp
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel route of inputs of ``dtype`` at head dim ``d``: the wgmma
+    kernels (``"wgmma"``) for float16, for bf16 at a padded head dim of
+    64, 128 or 256 and for float32 above 128; the mma.sync kernels
+    (``"mma"``) for bf16 at 32 and float32 up to 128. Decided on metadata
+    only."""
+    dp = kernel_instance(dtype, d)
+    if dtype == torch.float16 or dp > MMA_HEAD_DIMS[-1]:
+        return "wgmma"
     if dtype == torch.bfloat16 and dp in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma"
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The route of the dQ and dK/dV kernels: that of the forward."""
+    return fwd_route(dtype, d)
+
+
+def _plan(name, dtype, d, route):
+    """(route, instance head dim, operand dtype) of one kernel call;
+    ``route`` forces a route, which must have the instance."""
+    chosen = fwd_route(dtype, d) if route is None else route
+    if chosen not in ROUTES:
+        raise ValueError(f"{name}: unknown route {chosen!r}")
+    dp = kernel_instance(dtype, d)
+    if chosen == "wgmma" and dp not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"{name}: the wgmma kernels take head dims "
+                         f"{WGMMA_HEAD_DIMS}, not {dp}")
+    if chosen == "mma" and (dtype == torch.float16 or dp not in MMA_HEAD_DIMS):
+        raise ValueError(f"{name}: the mma.sync kernels take bfloat16 or "
+                         f"float32 at head dims {MMA_HEAD_DIMS}, not "
+                         f"{dtype} at {dp}")
+    kdtype = torch.float16 if dtype == torch.float16 else torch.bfloat16
+    return chosen, dp, kdtype
 
 
 def pad_head_dim(t, dp):
@@ -220,15 +276,14 @@ def pad_head_dim(t, dp):
     return t if d == dp else F.pad(t, (0, dp - d))
 
 
-def _to_kernel(name, tensors, dp):
-    """``tensors`` as the kernels take them: bf16, zero-padded along the
-    head dim to ``dp``. A copy only where a cast or a pad is needed."""
+def _to_kernel(name, tensors, dp, kdtype=torch.bfloat16):
+    """``tensors`` as the kernels take them: in ``kdtype`` (bf16, or f16 for
+    float16 inputs), zero-padded along the head dim to ``dp``. A copy only
+    where a cast or a pad is needed."""
     out = []
     for t in tensors:
-        if t.dtype not in KERNEL_DTYPES:
-            raise TypeError(f"{name}: the CUDA kernels take bfloat16 or "
-                            f"float32 inputs, got {t.dtype}")
-        out.append(pad_head_dim(t.to(torch.bfloat16), dp))
+        _check_dtype(name, t.dtype)
+        out.append(pad_head_dim(t.to(kdtype), dp))
     return out
 
 
@@ -239,10 +294,11 @@ def _from_kernel(t, d, dtype):
     return t.to(dtype)
 
 
-def _check(name, bf16=(), f32=()):
-    """Validate what reaches the kernels, after the cast and the padding;
-    returns (bh, s, d)."""
-    ref = bf16[0]
+def _check(name, operands=(), f32=()):
+    """Validate what reaches the kernels, after the cast and the padding:
+    ``operands`` of one 16-bit type (bf16 or f16) at an instance head dim,
+    ``f32`` row statistics; returns (bh, s, d)."""
+    ref = operands[0]
     if ref.dim() != 3:
         raise ValueError(f"{name}: expected (batch*heads, seq, head_dim), "
                          f"got {tuple(ref.shape)}")
@@ -252,10 +308,13 @@ def _check(name, bf16=(), f32=()):
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
     if bh > 65535:
         raise ValueError(f"{name}: batch*heads {bh} exceeds 65535")
-    for t in bf16:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
-                            f"{t.dtype}")
+    if ref.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float16 "
+                        f"operands, got {ref.dtype}")
+    for t in operands:
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: the operands must have one type, got "
+                            f"{t.dtype} beside {ref.dtype}")
         if tuple(t.shape) != (bh, s, d):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{(bh, s, d)}")
@@ -263,7 +322,7 @@ def _check(name, bf16=(), f32=()):
         if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
             raise ValueError(f"{name}: row statistics must be float32 "
                              f"{(bh, s)}, got {t.dtype} {tuple(t.shape)}")
-    for t in (*bf16, *f32):
+    for t in (*operands, *f32):
         if t.device != ref.device:
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -272,72 +331,50 @@ def _check(name, bf16=(), f32=()):
     return bh, s, d
 
 
-def _raise_on(lib, name, code):
+def _launch(name, route, inputs, stats, causal, n_out):
+    """One kernel call on CUDA tensors: ``inputs`` (q, k, v[, do]) cast and
+    padded for the route, ``stats`` the float32 row statistics. Returns
+    ``n_out`` outputs shaped like the padded operands (and, for the
+    forward, lse) as the kernel wrote them."""
+    q = inputs[0]
+    d = q.shape[-1]
+    chosen, dp, kdtype = _plan(name, q.dtype, d, route)
+    ops = _to_kernel(name, inputs, dp, kdtype)
+    bh, s, _ = _check(name, operands=ops, f32=stats)
+    lib_name, entry = _ENTRIES[name, chosen]
+    lib = library(lib_name)
+    fn = getattr(lib, entry + ("_f16" if kdtype == torch.float16 else ""))
+    outs = [torch.empty_like(ops[0]) for _ in range(n_out)]
+    if name == "flash_fwd":
+        outs.append(torch.empty((bh, s), dtype=torch.float32,
+                                device=q.device))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(*(t.data_ptr() for t in (*ops, *stats, *outs)), bh, s, dp,
+                  int(causal), d ** -0.5, stream)
     if code != 0:
         msg = lib.error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_{chosen}"] += 1
+    return outs
 
 
 def _launch_fwd(q, k, v, causal, route=None):
+    o, lse = _launch("flash_fwd", route, (q, k, v), (), causal, 1)
+    return _from_kernel(o, q.shape[-1], q.dtype), lse
+
+
+def _launch_dq(q, k, v, lse, delta, do, causal, route=None):
+    (dq,) = _launch("flash_dq", route, (q, k, v, do), (lse, delta), causal,
+                    1)
+    return _from_kernel(dq, q.shape[-1], q.dtype)
+
+
+def _launch_dkv(q, k, v, lse, delta, do, causal, route=None):
+    dk, dv = _launch("flash_dkv", route, (q, k, v, do), (lse, delta),
+                     causal, 2)
     d = q.shape[-1]
-    chosen = fwd_route(q.dtype, d) if route is None else route
-    if chosen not in FWD_ROUTES:
-        raise ValueError(f"flash_fwd: unknown route {chosen!r}")
-    dp = kernel_head_dim(d)
-    if chosen == "wgmma" and dp not in WGMMA_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: the wgmma kernel takes head dims "
-                         f"{WGMMA_HEAD_DIMS}, not {dp}")
-    qk, kk, vk = _to_kernel("flash_fwd", (q, k, v), dp)
-    bh, s, _ = _check("flash_fwd", bf16=(qk, kk, vk))
-    lib = _wgmma_lib() if chosen == "wgmma" else _lib()
-    fn = lib.hvd_flash_fwd_wgmma if chosen == "wgmma" else lib.hvd_flash_fwd
-    o = torch.empty_like(qk)
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), bh, s, dp, int(causal), d ** -0.5, stream)
-    _raise_on(lib, "flash_fwd", code)
-    LAUNCHES["flash_fwd"] += 1
-    LAUNCHES["flash_fwd_" + chosen] += 1
-    return _from_kernel(o, d, q.dtype), lse
-
-
-def _launch_dq(q, k, v, lse, delta, do, causal):
-    d = q.shape[-1]
-    dp = kernel_head_dim(d)
-    qk, kk, vk, dok = _to_kernel("flash_dq", (q, k, v, do), dp)
-    bh, s, _ = _check("flash_dq", bf16=(qk, kk, vk, dok), f32=(lse, delta))
-    lib = _lib()
-    dq = torch.empty_like(qk)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.hvd_flash_dq(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
-                                dok.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dq.data_ptr(), bh, s, dp,
-                                int(causal), d ** -0.5, stream)
-    _raise_on(lib, "flash_dq", code)
-    LAUNCHES["flash_dq"] += 1
-    return _from_kernel(dq, d, q.dtype)
-
-
-def _launch_dkv(q, k, v, lse, delta, do, causal):
-    d = q.shape[-1]
-    dp = kernel_head_dim(d)
-    qk, kk, vk, dok = _to_kernel("flash_dkv", (q, k, v, do), dp)
-    bh, s, _ = _check("flash_dkv", bf16=(qk, kk, vk, dok), f32=(lse, delta))
-    lib = _lib()
-    dk = torch.empty_like(kk)
-    dv = torch.empty_like(vk)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.hvd_flash_dkv(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
-                                 dok.data_ptr(), lse.data_ptr(),
-                                 delta.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), bh, s, dp, int(causal),
-                                 d ** -0.5, stream)
-    _raise_on(lib, "flash_dkv", code)
-    LAUNCHES["flash_dkv"] += 1
     return _from_kernel(dk, d, k.dtype), _from_kernel(dv, d, v.dtype)
 
 
@@ -355,24 +392,28 @@ def _route(name, t):
 
 def flash_fwd(q, k, v, causal: bool = False, route: Optional[str] = None):
     """Forward on (batch*heads, seq, head_dim): ``(o, lse)``. On CUDA
-    tensors ``route`` ("wgmma" or "mma") forces one forward kernel, for
+    tensors ``route`` ("wgmma" or "mma") forces one kernel route, for
     measurement; by default :func:`fwd_route` picks it."""
     if _route("flash_fwd", q):
         return _launch_fwd(q, k, v, causal, route)
     return flash_fwd_reference(q, k, v, causal)
 
 
-def flash_dq(q, k, v, lse, delta, do, causal: bool = False):
-    """dQ on (batch*heads, seq, head_dim)."""
+def flash_dq(q, k, v, lse, delta, do, causal: bool = False,
+             route: Optional[str] = None):
+    """dQ on (batch*heads, seq, head_dim); ``route`` as for
+    :func:`flash_fwd` (by default :func:`bwd_route`)."""
     if _route("flash_dq", q):
-        return _launch_dq(q, k, v, lse, delta, do, causal)
+        return _launch_dq(q, k, v, lse, delta, do, causal, route)
     return flash_dq_reference(q, k, v, lse, delta, do, causal)
 
 
-def flash_dkv(q, k, v, lse, delta, do, causal: bool = False):
-    """``(dk, dv)`` on (batch*heads, seq, head_dim)."""
+def flash_dkv(q, k, v, lse, delta, do, causal: bool = False,
+              route: Optional[str] = None):
+    """``(dk, dv)`` on (batch*heads, seq, head_dim); ``route`` as for
+    :func:`flash_fwd`."""
     if _route("flash_dkv", q):
-        return _launch_dkv(q, k, v, lse, delta, do, causal)
+        return _launch_dkv(q, k, v, lse, delta, do, causal, route)
     return flash_dkv_reference(q, k, v, lse, delta, do, causal)
 
 

@@ -30,8 +30,8 @@ from horovod_tpu_torch import bert_pretraining as bp
 
 _CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
-    ("flash_dq", ("flash_dq_kernel",)),
-    ("flash_dkv", ("flash_dkv_kernel",)),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_wgmma_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_wgmma_kernel")),
     ("ce_fwd", ("ce_fwd_kernel", "ce_fwd_combine_kernel")),
     ("ce_dx", ("ce_dx_kernel",)),
     ("ce_dw", ("ce_dw_kernel",)),

@@ -45,13 +45,12 @@ def test_kernel_operands_pad_and_round(h, hp, dtype):
 
 
 @pytest.mark.parametrize("h,dtype,exc", [
-    (1032, torch.bfloat16, ValueError), (12, torch.bfloat16, ValueError),
+    (1032, torch.bfloat16, ValueError), (1030, torch.bfloat16, ValueError),
     (2048, torch.float32, ValueError), (256, torch.float16, TypeError),
     (256, torch.int32, TypeError)])
 def test_inputs_the_cuda_path_still_refuses(h, dtype, exc):
-    """Hidden sizes above 1024 or not a multiple of 8, and hidden states
-    other than bf16 or float32, raise before any launch; the message names
-    the limit."""
+    """Hidden sizes above 1024, and hidden states other than bf16 or
+    float32, raise before any launch; the message names the limit."""
     with pytest.raises(exc, match="1024|bfloat16"):
         tcl.kernel_operands(torch.zeros(8, h, dtype=dtype),
                             torch.zeros(70, h))

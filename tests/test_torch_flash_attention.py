@@ -5,9 +5,10 @@ on the same seeded inputs as the Pallas kernels in interpret mode, in
 float32: output, row log-sum-exp, and dq/dk/dv through ``jax.vjp``.
 Tolerance: atol = rtol = 1e-5 (float32, the two differ only in the order
 of their sums). The head-dim padding of the CUDA path (8 -> 32, 48 -> 64,
-96 -> 128) is checked the same way in ``test_torch_kernel_padding.py``,
-and which inputs reach which kernel route on tensor metadata in
-``test_torch_flash_routes.py``. The CUDA kernels themselves are checked
+96 -> 128) is checked the same way in ``test_torch_kernel_padding.py``
+(12, 136, 200, 256 and float16 in ``test_torch_flash_wide.py``), and which
+inputs reach which kernel route on tensor metadata in
+``test_torch_flash_routes.py`` and ``test_torch_flash_bwd_routes.py``. The CUDA kernels themselves are checked
 against the same plain versions on the GPU by ``chip_smoke.py``.
 """
 
@@ -110,22 +111,26 @@ def test_bias_and_block_errors_match_jax():
 def test_kernel_input_checks():
     """What the CUDA wrappers refuse is decided in Python, before any
     launch, so it is checked here on CPU tensors. ``_check`` sees what
-    reaches the kernels, after the cast to bf16 and the padding."""
+    reaches the kernels, after the cast to bf16 (or float16) and the
+    padding."""
     ok = torch.zeros(4, 64, 64, dtype=torch.bfloat16)
-    assert tfa._check("t", bf16=(ok, ok)) == (4, 64, 64)
+    assert tfa._check("t", operands=(ok, ok)) == (4, 64, 64)
     with pytest.raises(TypeError, match="bfloat16"):
-        tfa._check("t", bf16=(ok.half(),))
+        tfa._check("t", operands=(ok.float(),))
+    with pytest.raises(TypeError, match="one type"):
+        tfa._check("t", operands=(ok, ok.half()))
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._check("t", bf16=(torch.zeros(4, 64, 136, dtype=torch.bfloat16),))
+        tfa._check("t", operands=(torch.zeros(4, 64, 136,
+                                              dtype=torch.bfloat16),))
     with pytest.raises(ValueError, match="shape"):
-        tfa._check("t", bf16=(ok, torch.zeros(4, 32, 64,
-                                              dtype=torch.bfloat16)))
+        tfa._check("t", operands=(ok, torch.zeros(4, 32, 64,
+                                                  dtype=torch.bfloat16)))
     with pytest.raises(ValueError, match="row statistics"):
-        tfa._check("t", bf16=(ok,), f32=(torch.zeros(4, 64,
-                                                     dtype=torch.float64),))
+        tfa._check("t", operands=(ok,),
+                   f32=(torch.zeros(4, 64, dtype=torch.float64),))
     with pytest.raises(ValueError, match="contiguous"):
-        tfa._check("t", bf16=(ok.transpose(1, 2).contiguous()
-                              .transpose(1, 2),))
+        tfa._check("t", operands=(ok.transpose(1, 2).contiguous()
+                                  .transpose(1, 2),))
 
 
 def test_cpu_path_launches_no_kernel():
@@ -135,5 +140,6 @@ def test_cpu_path_launches_no_kernel():
     delta = tfa.attention_delta(do, o)
     tfa.flash_dq(q, k, v, lse, delta, do)
     tfa.flash_dkv(q, k, v, lse, delta, do)
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_wgmma": 0,
-                            "flash_fwd_mma": 0, "flash_dq": 0, "flash_dkv": 0}
+    kernels = ("flash_fwd", "flash_dq", "flash_dkv")
+    assert tfa.LAUNCHES == {f"{kernel}{route}": 0 for kernel in kernels
+                            for route in ("", "_wgmma", "_mma")}

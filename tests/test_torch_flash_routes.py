@@ -5,8 +5,10 @@ All of it is decided in Python from tensor metadata before any launch, so
 it is checked here on CPU tensors: the forward route (wgmma or mma.sync)
 for each dtype and head dim, the head dim of the kernel instance an input
 is padded to, the cast to bf16, and the errors for head dims and dtypes no
-instance takes. The numerics of the padded path are checked against the
-JAX package in ``test_torch_flash_attention.py``.
+instance takes. The backward's routes, float16 and head dims above 128
+are checked in ``test_torch_flash_bwd_routes.py``. The numerics of the
+padded path are checked against the JAX package in
+``test_torch_kernel_padding.py`` and ``test_torch_flash_wide.py``.
 """
 
 import pytest
@@ -18,7 +20,7 @@ from horovod_tpu_torch.ops import flash_attention as tfa
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_kernel_input_checks_accept_instances(d):
     t = torch.zeros(4, 64, d, dtype=torch.bfloat16)
-    assert tfa._check("t", bf16=(t, t)) == (4, 64, d)
+    assert tfa._check("t", operands=(t, t)) == (4, 64, d)
 
 
 # (dtype, head dim) -> (forward route, head dim of the kernel instance)
@@ -48,18 +50,17 @@ def test_forward_route_and_instance(case):
     q = torch.zeros(2, 16, d, dtype=dtype)
     (qk,) = tfa._to_kernel("t", (q,), dp)
     assert qk.dtype == torch.bfloat16 and qk.shape == (2, 16, dp)
-    assert tfa._check("t", bf16=(qk,)) == (2, 16, dp)
+    assert tfa._check("t", operands=(qk,)) == (2, 16, dp)
 
 
 @pytest.mark.parametrize("dtype,d,exc", [
-    (torch.bfloat16, 136, ValueError), (torch.bfloat16, 12, ValueError),
-    (torch.bfloat16, 0, ValueError), (torch.float16, 64, TypeError),
+    (torch.bfloat16, 264, ValueError), (torch.bfloat16, 512, ValueError),
+    (torch.bfloat16, 0, ValueError), (torch.float32, 257, ValueError),
     (torch.float64, 64, TypeError)])
 def test_inputs_the_cuda_path_still_refuses(dtype, d, exc):
-    """Head dims above 128 or not a multiple of 8, and dtypes other than
-    bf16 and float32, raise before any launch; the message names the
-    limit."""
-    with pytest.raises(exc, match="128|bfloat16"):
+    """Head dims of 0 or above 256, and dtypes other than bf16, float16
+    and float32, raise before any launch; the message names the limit."""
+    with pytest.raises(exc, match="256|bfloat16"):
         tfa.fwd_route(dtype, d)
     with pytest.raises(exc):
         if exc is ValueError:

@@ -2,13 +2,14 @@
 JAX package.
 
 Flash attention zero-pads head dims 8, 48 and 96 to 32, 64 and 128 and
-keeps the scale of the original head dim; the LM-head cross-entropy
-zero-pads hidden sizes 16, 48 and 1000 to 256, 256 and 1024. Here the
-plain versions of the kernels run on the padded float32 inputs, on the
-CPU, and are held to the unpadded plain results and to the JAX kernels
-(Pallas in interpret mode) on the same seeded inputs, with the tolerances
-of ``test_torch_flash_attention.py`` and ``test_torch_chunked_loss.py``,
-whose input helpers this file shares.
+keeps the scale of the original head dim (12, 136, 200 and 256 in
+``test_torch_flash_wide.py``, through ``check_padded_head_dim``); the
+LM-head cross-entropy zero-pads hidden sizes 16, 48, 1000 and 12 to 256,
+256, 1024 and 256. Here the plain versions of the kernels run on the
+padded float32 inputs, on the CPU, and are held to the unpadded plain
+results and to the JAX kernels (Pallas in interpret mode) on the same
+seeded inputs, with the tolerances of ``test_torch_flash_attention.py``
+and ``test_torch_chunked_loss.py``, whose input helpers this file shares.
 """
 
 import jax
@@ -24,16 +25,13 @@ from test_torch_chunked_loss import GRAD_TOL, LOSS_TOL, _data, _jax
 from test_torch_flash_attention import TOL, _bhsd, _inputs
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [8, 48, 96])
-def test_padded_head_dims_match_jax(d, causal):
-    """The CUDA path's rewrite of head dim d as the next kernel instance:
+def check_padded_head_dim(d, dp, causal):
+    """The CUDA path's rewrite of head dim d as the kernel instance dp:
     the plain versions on zero-padded float32 inputs, with the scale of the
     original head dim, give the unpadded results in the first d columns,
     zeros in the rest, and the JAX kernels' results (interpret mode)."""
     q, k, v, do = _inputs(32, d, seed=2)
-    dp = tfa.kernel_head_dim(d)
-    assert dp == {8: 32, 48: 64, 96: 128}[d]
+    assert tfa.kernel_head_dim(d) == dp
     tq, tk, tv, tdo = (torch.from_numpy(_bhsd(a)) for a in (q, k, v, do))
     pq, pk, pv, pdo = (tfa.pad_head_dim(t, dp) for t in (tq, tk, tv, tdo))
     scale = d ** -0.5
@@ -62,7 +60,14 @@ def test_padded_head_dims_match_jax(d, causal):
                                    **TOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("h", [16, 48, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_padded_head_dims_match_jax(d, causal):
+    """Head dims 8, 48 and 96 padded to the instances 32, 64 and 128."""
+    check_padded_head_dim(d, {8: 32, 48: 64, 96: 128}[d], causal)
+
+
+@pytest.mark.parametrize("h", [16, 48, 1000, 12])
 def test_padded_hidden_matches_jax(h):
     """The CUDA path's rewrite of hidden size H as the next kernel
     instance: the plain versions on zero-padded float32 operands give the
